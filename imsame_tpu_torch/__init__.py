@@ -1,0 +1,23 @@
+"""imsame_tpu_torch -- all-vs-all metagenome read comparison on a CUDA GPU.
+
+The PyTorch/CUDA port of the JAX package ``imsame_tpu``, which stays in the
+repository as the reference the port is tested against.  It rebuilds the
+capabilities of the reference C tool IMSAME (Bitlab-UMA/IMSAME): k-mer
+dictionary seeding, ungapped extension + Karlin-Altschul e-value
+filtering, a quirky semi-global gapped aligner, and per-read
+identity/coverage reporting with sample-level Jaccard similarity.
+
+Layout (mirrors imsame_tpu/):
+  io/        FASTA ingest, report rendering (host, numpy)
+  index/     flat sorted k-mer index
+  native/    ctypes loader of the host C runtime (imsame_tpu/native/host.c)
+  ops/       device compute: extension gate (torch), NW aligners (CUDA
+             kernels in csrc/ + plain torch versions), traceback (torch)
+  csrc/      hand-written CUDA kernels for sm_90a (H100)
+  pipeline   single-device engine (TorchEngine)
+  cli        reference-flag command line
+
+This package imports torch and numpy, never jax or imsame_tpu.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,82 @@
+"""Runtime configuration for the engine.
+
+One dataclass mirroring the reference CLI flags and their defaults
+(reference: src/IMSAME.c:44-49 and init_args at src/IMSAME.c:520-578), plus
+the engine tunables that have no reference equivalent (batching).
+
+Reference flag quirks honored here:
+  * ``-igap``/``-egap`` are *negated* on parse (src/IMSAME.c:565,568): users
+    pass positive penalties; the engine stores negative scores.  The
+    dataclass stores the already-negative scores, like the reference's
+    internal state, with defaults igap=-5, egap=-2.
+  * ``--verbose`` is accepted but dead, as in the reference
+    (src/IMSAME.c:32,524 -- VERBOSE_ACTIVE is never read).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass
+class Config:
+    """Pipeline configuration (defaults == reference defaults)."""
+
+    # Acceptance thresholds (reference: src/IMSAME.c:44-49).
+    min_e_value: float = 1e-20
+    min_coverage: float = 0.5
+    min_identity: float = 0.5
+    # Gap scores, stored negative (post-negation, reference internal form).
+    igap: int = -5
+    egap: int = -2
+
+    # Reference thread count; kept for parity of the query-scan stream
+    # boundary quirk (a thread's first read does not receive the previous
+    # read's trailing base).  The engine emulates a given thread split; 1
+    # gives the canonical deterministic stream.
+    n_threads: int = 1
+
+    # --- engine tunables (no reference equivalent) ---
+    # Candidates gated per read in stage 1 (most reads accept their first
+    # candidate, so a small first window resolves them cheaply); stage 2
+    # flat-gates every remaining candidate of the unresolved tail.
+    first_window: int = 8
+    # Scale first_window with the dictionary's average bucket load
+    # (n_entries / 4^k): dense databases push the true partner's seed
+    # past a fixed-size window, sending whole true-pair streams to the
+    # much larger stage-2 gate.  F_eff = F * max(1, ceil(2*load)), capped
+    # at 64.  Accepts are F-invariant by construction.
+    first_window_auto: bool = True
+    # Flat-gate chunk sizes (candidates per device call), descending
+    # choice by pipeline._gate_chunks_dispatch.  The largest bounds the
+    # gate's [chunk, window] device temporaries.
+    gate_chunks: tuple = (1 << 21, 1 << 19, 1 << 16)
+    # First-tier extension window (bases) for large gate stages: random
+    # candidates' walks die within a few mismatches, provably inside this
+    # window (the gate flags exactness); only escapees re-run at the full
+    # read window.  0 disables the tier.
+    gate_window_small: int = 64
+    # NW batch-shape ladders (descending; see pipeline._nw_chunks).  The
+    # stats-only accept path has no bp tensor, so its ladder tops out
+    # high; the render path materializes 4*(2L-1)*L bytes of
+    # backpointers per pair (~0.5 MB at the 256 bucket).
+    nw_stats_batches: tuple = (32768, 8192, 4096, 2048, 1024, 512, 256)
+    nw_render_batches: tuple = (2048, 1024, 512, 256)
+    # Device-memory budget for one render chunk's backpointer tensor; the
+    # render ladder is capped per length bucket so B*8*L^2 stays under it.
+    nw_render_bp_budget: int = 2 << 30
+    # Length buckets (reads padded up to the smallest bucket >= their
+    # len).  The engine runs buckets up to 256 (pipeline.MAX_BUCKET).
+    length_buckets: tuple = (128, 256, 512, 1024, 2048, 3072)
+
+    def validate(self) -> None:
+        if self.min_e_value < 0:
+            raise ValueError("min_e_value must be >= 0")
+        if not (0 < self.min_coverage):
+            raise ValueError("min_coverage must be > 0")
+        if not (0 < self.min_identity):
+            raise ValueError("min_identity must be > 0")
+        if self.n_threads < 1:
+            raise ValueError("n_threads must be >= 1")
+        if any(c % 32 for c in self.gate_chunks):
+            raise ValueError("gate_chunks must be multiples of 32")

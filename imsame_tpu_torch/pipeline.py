@@ -1,0 +1,979 @@
+"""Batched single-device engine: seed scan -> extension gate -> NW resolve.
+
+Replaces the reference's per-thread sequential scan
+(src/alignmentFunctions.c:43-208) with batched device stages while keeping
+its acceptance semantics bit-exact:
+
+  * Each query read has a totally ordered candidate stream: k-mer start
+    positions in scan order (including the boundary-base quirk, SURVEY.md
+    6.5) x bucket hits in descending database position (6.1).
+  * The reference walks that stream sequentially, runs the gapped aligner
+    on every e-value-passing hit, and the first *accepting* pair wins the
+    read ("NWaligned", 6.8).  The winner only depends on the (query read,
+    db read) pair -- the aligner sees full reads -- so acceptance can be
+    evaluated out of order and the winner recovered as the first candidate
+    whose pair accepts.  We therefore:
+      1. gate each read's first few candidates on the device
+         (ops/candidates.py flat gate over packed rows,
+         ops/extend_packed.py) -- most reads accept their first candidate,
+         mirroring the reference's early exit -- then gate every remaining
+         candidate of the unresolved tail in one flat pass (random reads
+         have no passing candidate anywhere, so the reference walks their
+         whole stream too);
+      2. gapped-align every unique passing (read, db read) pair in one
+         wave with the stats-only aligner (ops/resolve.py nw_stats_rows,
+         the nw_stats CUDA kernel -- no backpointer tensor), then
+      3. replay each read's candidate stream on the host: the first
+         candidate whose pair accepted wins the read (_judge_and_replay).
+         Traceback chains are produced at render time by running the
+         backpointer kernel (nw_forward) and the traceback on accepted
+         pairs only.
+
+This yields identical accepted pairs and, with the shared renderer, a
+byte-identical report to the reference binary at n_threads=1.
+
+Device work is queued asynchronously on the current CUDA stream; each
+stage reads its results back with one ``.cpu()``, which is where the host
+waits.  Reads up to 256 bp (length buckets 128 and 256) and the packed
+index format (n_db < 2^20 reads, n_query < 2^20 reads) are supported;
+anything else raises NotImplementedError.
+
+Row-coordinate bound reduction (used by the packed extension): the
+reference clamps the extension walk with four checks -- array end, and the
+per-read bounds rxs/rxe/rys/rye from _read_bounds_ext (last read's end
+bound is total_len, src/alignmentFunctions.c:280-294).  Because reads are
+concatenated contiguously, all four reduce in row coordinates to
+``o <= read_len - 1 - offset`` (forward) and ``o <= offset - K - 1``
+(backward) for *both* the last-read and interior cases, so the walk never
+leaves the owning read and per-read packed rows are sufficient.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import native
+from .config import Config
+from .constants import FIXED_K, MAX_READ_SIZE
+from .index.kmer import KmerIndex, build_index, rolling_keys
+from .io.fasta import CODE_TO_CHAR, SeqInfo
+from .io.reconstruct import backtrack_from_chain
+from .io.report import format_record, render_alignment
+from .ops.candidates import encode_seg_chunk, flat_gate_packed, flat_gate_seg
+from .ops.extend import raw_score_threshold
+from .ops.extend_packed import pack_stream, rows_from_stream
+from .ops.resolve import nw_stats_rows, nw_traceback_rows
+from .utils.timing import PhaseTimer
+
+# Largest length bucket the engine runs; longer reads need the long-read
+# buckets (ROADMAP Queue 1, "Long-read envelope").
+MAX_BUCKET = 256
+# Gate stages above this many candidates run Config.gate_window_small
+# first; below it the escalation's extra device round trip cannot repay
+# the narrower window.
+SMALL_TIER_MIN_CANDIDATES = 2_000_000
+# Segment-encoded gate words hold the index row in 25 bits.
+SEG_MAX_INDEX_ROWS = 1 << 25
+_LONG_READS = (
+    "reads longer than {} bp need the long-read length buckets, not yet "
+    "ported to imsame_tpu_torch (ROADMAP Queue 1: long-read envelope)"
+)
+
+
+@dataclasses.dataclass(slots=True)
+class AcceptedRead:
+    qread: int
+    dbread: int
+    length: int
+    identities: int
+    ylen: int
+    # Traceback data: the accept path runs the stats-only aligner (no
+    # backpointer tensor); the chain is produced by running the bp kernel
+    # on accepted pairs only, at render time (render_report).
+    n_steps: int = -1
+    chain: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    accepted: int
+    n_query: int
+    n_db: int
+    pairs: List[Tuple[int, int]]
+    records: List[AcceptedRead]
+    timings: Dict[str, float]
+    nw_cells: int  # DP cells computed (for GCUPS accounting)
+    n_candidates: int  # extension candidates evaluated
+
+    @property
+    def jaccard(self) -> float:
+        return self.accepted / ((self.n_db + self.n_query) - self.accepted)
+
+
+class _KeySet:
+    """Sorted-array membership set for pair keys (read * n_db + sid).
+
+    The judge path tests hundreds of thousands of candidate keys against
+    the rejected-pair set per compare; a Python int set costs a per-key
+    interpreter hop (~1 s at 100k-read scale), while a sorted array +
+    searchsorted is one vectorized pass."""
+
+    def __init__(self):
+        self._arr = np.empty(0, np.int64)
+        self._pend: List[np.ndarray] = []
+
+    def add(self, keys: np.ndarray) -> None:
+        if len(keys):
+            self._pend.append(np.asarray(keys, np.int64))
+
+    def _materialize(self) -> np.ndarray:
+        if self._pend:
+            self._arr = np.unique(
+                np.concatenate([self._arr] + self._pend)
+            )
+            self._pend = []
+        return self._arr
+
+    def contains(self, keys: np.ndarray) -> np.ndarray:
+        a = self._materialize()
+        if not len(a) or not len(keys):
+            return np.zeros(len(keys), bool)
+        i = np.minimum(np.searchsorted(a, keys), len(a) - 1)
+        return a[i] == keys
+
+
+def _unpack_gate_bits(words: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """[2, n/32] int32 gate words -> (passes, exact) bool[n]."""
+    pb = np.ascontiguousarray(words, dtype="<i4")
+    flat = np.unpackbits(
+        pb.view(np.uint8).reshape(2, -1), axis=1, bitorder="little"
+    )[:, :n].astype(bool)
+    return flat[0], flat[1]
+
+
+class TorchEngine:
+    """Compare query samples against one database sample on one device."""
+
+    def __init__(
+        self,
+        db: SeqInfo,
+        cfg: Optional[Config] = None,
+        index: Optional[KmerIndex] = None,
+        *,
+        device,
+    ):
+        self.db = db
+        self.cfg = cfg or Config()
+        self.cfg.validate()
+        self.device = torch.device(device)
+        self.timer = PhaseTimer()
+        self.db_read_lens = db.read_lens()
+        max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
+        if max_dlen > MAX_BUCKET:
+            raise NotImplementedError(_LONG_READS.format(MAX_BUCKET))
+        if db.n_seqs >= (1 << 20):
+            raise NotImplementedError(
+                "databases of >= 2^20 reads need the wide index format "
+                "(ROADMAP Queue 1: scale blocks)"
+            )
+        with self.timer.phase("index_build"):
+            # A prebuilt index (load_index / index_from_arrays) skips the
+            # build; the reference rebuilds its dictionary from FASTA every
+            # run (src/IMSAME.c:196-289).
+            self.index: KmerIndex = index if index is not None else build_index(db)
+        # One-word index payload (sid << 12 | doff): one gather per
+        # candidate in the gate.
+        if self.index.packed is not None:
+            words = self.index.packed.view(np.int32)
+        else:
+            sid = np.asarray(self.index.sid, np.int64)
+            doff = np.asarray(self.index.pos, np.int64) - db.start[sid]
+            words = ((sid.astype(np.uint32) << np.uint32(12))
+                     | doff.astype(np.uint32)).view(np.int32)
+        self._d_idx_tab = self._put(words)
+        self._d_dlen = self._put(np.asarray(self.db_read_lens, np.int32))
+        self._dp_cache: Dict[int, torch.Tensor] = {}
+        self._nw_cells = 0
+        self._n_cands = 0
+        # Device handles of the last compare()'s query-side tables; the
+        # render path runs the bp kernel on accepted pairs from these.
+        self._last_dev: Optional[Tuple] = None
+        self.stage_stats: Dict[str, tuple] = {}
+
+    # ------------------------------------------------------------------
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+
+    def _rows_on_device(
+        self, codes: np.ndarray, start: np.ndarray, lens: np.ndarray,
+        row_len: int,
+    ) -> torch.Tensor:
+        """Packed read rows built ON DEVICE from the 2-bit concatenated
+        stream: the host-to-device payload is len/4 bytes per read instead
+        of row_len/4."""
+        return rows_from_stream(
+            self._put(pack_stream(codes).view(np.int32)),
+            self._put(np.asarray(start, np.int32)),
+            self._put(np.asarray(lens, np.int32)),
+            row_len=row_len,
+        )
+
+    def _packed_db_rows(self, row_len: int) -> torch.Tensor:
+        if row_len not in self._dp_cache:
+            self._dp_cache[row_len] = self._rows_on_device(
+                self.db.codes, self.db.start, self.db_read_lens, row_len
+            )
+        return self._dp_cache[row_len]
+
+    # ------------------------------------------------------------------
+    def _stream_bounds(self, q: SeqInfo):
+        """Per-read k-mer stream bounds (host, vectorized, cheap).
+
+        Returns (qlo, qhi, n_kmers): concatenated-coordinate stream window
+        per read, with the boundary-base quirk (SURVEY.md 6.5) and the
+        n_threads split semantics (a thread's first read does not inherit
+        the previous read's trailing base, reference worker init)."""
+        n = q.n_seqs
+        starts = q.start.astype(np.int64)
+        total = q.total_len
+        qlo = starts.copy()
+        if n > 0:
+            qlo[1:] = starts[1:] - 1
+            n_threads = self.cfg.n_threads
+            if n_threads > 1:
+                rpt = n // n_threads
+                tstarts = np.array(
+                    [t * rpt for t in range(n_threads)], dtype=np.int64
+                )
+                tstarts = tstarts[tstarts < n]
+                qlo[tstarts] = starts[tstarts]
+        qhi = np.empty(n, np.int64)
+        if n > 1:
+            qhi[:-1] = starts[1:] - 2
+        if n > 0:
+            qhi[-1] = total - 1
+        n_kmers = np.maximum(0, qhi - FIXED_K + 1 - qlo + 1)  # [n]
+        return qlo, qhi, n_kmers
+
+    def _kmer_stream(self, q: SeqInfo):
+        """Per-read candidate stream tables (host, vectorized).
+
+        Returns (kp, K_off, lo, cnt, Ccum, C_off):
+          kp[i]    k-mer start position of global k-mer slot i (stream order)
+          K_off[r] first k-mer slot of read r (K_off[n] = total slots)
+          lo[i]    index bucket start for slot i
+          cnt[i]   bucket size for slot i
+          Ccum[i]  exclusive cumsum of cnt (global candidate offsets)
+          C_off[r] first global candidate rank boundary per read
+        """
+        n = q.n_seqs
+        qlo, qhi, n_kmers = self._stream_bounds(q)
+        K_off = np.zeros(n + 1, np.int64)
+        K_off[1:] = n_kmers.cumsum()
+        total_kmers = int(K_off[-1])
+
+        # Native fused pass: rolling key + bucket lookup + prefix sum in one
+        # linear scan (native/host.c imsame_kmer_stream).
+        arrs = native.kmer_stream_arrays(
+            q.codes, qlo, n_kmers, FIXED_K, self.index.bucket_start
+        )
+        if arrs is not None:
+            kp, lo, cnt, Ccum = arrs
+            C_off = Ccum[K_off]
+            return kp, K_off, lo, cnt, Ccum, C_off
+
+        # numpy fallback: k-mer start positions via vectorized repeat.
+        kp = (
+            np.repeat(qlo, n_kmers)
+            + np.arange(total_kmers, dtype=np.int64)
+            - np.repeat(K_off[:-1], n_kmers)
+        )
+
+        # keys + bucket ranges in one vectorized pass
+        all_keys = rolling_keys(q.codes)  # key at every concat position
+        keys = all_keys[kp] if total_kmers else np.empty(0, np.uint32)
+        lo, hi = self.index.lookup_ranges(keys)
+        cnt = (hi - lo).astype(np.int64)
+        Ccum = np.zeros(total_kmers + 1, np.int64)
+        np.cumsum(cnt, out=Ccum[1:])
+        C_off = Ccum[K_off]
+        return kp, K_off, lo, cnt, Ccum, C_off
+
+    # ------------------------------------------------------------------
+    def _nw_bucket(self, L: int):
+        for b in self.cfg.length_buckets:
+            if L <= b:
+                return b
+        raise ValueError("Read size reached for gapped alignment.")
+
+    def _render_sizes(self, L: int) -> tuple:
+        """Render ladder for length bucket L: the configured ladder capped
+        so one chunk's bp tensor (8*L^2 bytes/pair) fits the budget, in
+        multiples of 8 pairs."""
+        gran = 8
+        cap = int(self.cfg.nw_render_bp_budget // (8 * L * L))
+        cap = max(gran, (cap // gran) * gran)
+        sizes = tuple(b for b in self.cfg.nw_render_batches if b <= cap)
+        if not sizes:
+            sizes = (cap,) if cap == gran else (cap, gran)
+        return sizes
+
+    def _nw_chunks(
+        self, r_ids: np.ndarray, sids: np.ndarray, qlens: np.ndarray,
+        sizes: tuple = None,
+        render: bool = False,
+        count_cells: bool = True,
+    ):
+        """Split pairs into padded chunks bucketed by length.
+
+        Yields (chunk_indices, rpad, spad, L).  ``sizes`` is the descending
+        ladder of batch sizes; chunks pad up to the smallest ladder size
+        that covers the remainder, with (0, 0) pairs whose results are
+        dropped.  With ``render=True`` the ladder is re-derived per length
+        bucket (see _render_sizes)."""
+        P = len(r_ids)
+        xls = self.db_read_lens[sids]
+        yls = qlens[r_ids]
+        if P and (int(xls.max()) > MAX_READ_SIZE or int(yls.max()) > MAX_READ_SIZE):
+            raise ValueError("Read size reached for gapped alignment.")
+        if count_cells:  # render runs aren't compare GCUPS
+            self._nw_cells += int(np.sum(xls.astype(np.int64) * yls))
+        maxl = np.maximum(xls, yls)
+        buckets = np.array([self._nw_bucket(int(m)) for m in maxl], np.int64) \
+            if P else np.empty(0, np.int64)
+        for L in np.unique(buckets):
+            idxs = np.flatnonzero(buckets == L)
+            lsizes = self._render_sizes(int(L)) if render else sizes
+            pos = 0
+            while pos < len(idxs):
+                rem = len(idxs) - pos
+                B = lsizes[0]
+                for z in lsizes[1:]:
+                    if z >= rem:
+                        B = z
+                chunk = idxs[pos : pos + min(rem, B)]
+                pos += len(chunk)
+                rpad = np.zeros(B, np.int32)
+                spad = np.zeros(B, np.int32)
+                rpad[: len(chunk)] = r_ids[chunk]
+                spad[: len(chunk)] = sids[chunk]
+                yield chunk, rpad, spad, int(L)
+
+    def _nw_dispatch_pairs(self, r_ids, sids, qlens, dev):
+        """Queue the stats-only aligner over pairs (no backpointer tensor)
+        without waiting for it, so the caller can overlap further host and
+        gate work before _nw_fetch_pairs reads the results back."""
+        d_qp, d_dp, d_qlen, d_dlen = dev
+        pending = []
+        t0 = time.perf_counter()
+        for chunk, rpad, spad, L in self._nw_chunks(
+            r_ids, sids, qlens, self.cfg.nw_stats_batches
+        ):
+            res = nw_stats_rows(
+                d_qp, d_dp, self._put(np.stack([rpad, spad])), d_qlen, d_dlen,
+                self.cfg.igap, self.cfg.egap, max_len=L,
+            )
+            pending.append((chunk, res))
+        # sub-span of resolve.nw: host chunking + queueing
+        self.timer.accumulate("nw.dispatch", time.perf_counter() - t0)
+        return len(r_ids), pending
+
+    def _nw_fetch_pairs(self, P: int, pending, label: str = "nw.fetch") -> np.ndarray:
+        """Read the queued stats back with one ``.cpu()``.  Returns a
+        [P, 3] int64 array of (length, identities, ylen) per pair -- the
+        accept-gate inputs."""
+        out = np.empty((P, 3), np.int64)
+        if not pending:
+            return out
+        t0 = time.perf_counter()
+        flat = torch.cat([res for _, res in pending], dim=1).cpu().numpy()
+        self.timer.accumulate(label, time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        col = 0
+        for chunk, res in pending:
+            B = res.shape[1]
+            out[chunk] = flat[:, col : col + len(chunk)].T
+            col += B
+        self.timer.accumulate("nw.scatter", time.perf_counter() - t1)
+        return out
+
+    # ------------------------------------------------------------------
+    def _gate_chunks(self, hits, rq, d_thr, dev, window):
+        """Gate candidates and wait for the bits: (passes, exact) bools."""
+        pending = self._gate_chunks_dispatch(hits, rq, d_thr, dev, window)
+        return self._gate_chunks_fetch(pending, len(hits))
+
+    def _gate_chunks_dispatch(self, hits, rq, d_thr, dev, window):
+        """Queue the gate over candidate chunks and return the pending
+        list WITHOUT waiting, so callers overlap the gate's device time
+        with other work -- _gate_chunks_fetch collects the bits later.
+
+        ``hits`` are index rows, ``rq`` the uint32 (read << 12) | qoff
+        words.  Each chunk is segment-encoded (ops/candidates.py
+        flat_gate_seg: 4 B/candidate + 8 B/segment) when the index rows
+        fit its 25-bit hit field, else shipped as two words per candidate
+        (flat_gate_packed); both give the same bits."""
+        d_qp, d_dp, d_qlen, d_dlen = dev
+        N = len(hits)
+        sizes = sorted(self.cfg.gate_chunks, reverse=True)
+        seg = self._d_idx_tab.shape[0] <= SEG_MAX_INDEX_ROWS
+        pending = []
+        # gate.dispatch / gate.fetch are sub-spans of resolve.extend.
+        t_disp0 = time.perf_counter()
+        pos = 0
+        while pos < N:
+            rem = N - pos
+            # The smallest size whose repetition count doesn't exceed a
+            # single larger chunk's slots; the largest bounds the gate's
+            # [chunk, window] device temporaries.
+            size = sizes[0]
+            for z in sizes[1:]:
+                if -(-rem // z) * z <= size:
+                    size = z
+            take = min(rem, size)
+            n_pad = -(-take // 32) * 32  # bits pack 32 per word
+            sl = slice(pos, pos + take)
+            if seg:
+                rids_c = (rq[sl] >> np.uint32(12)).astype(np.int32)
+                qoffs_c = (rq[sl] & np.uint32(0xFFF)).astype(np.int32)
+                # segments <= candidates, so n_pad slots never overflow
+                nat = native.seg_encode(rids_c, qoffs_c, hits[sl], n_pad, n_pad)
+                if nat is not None:
+                    cand1, rt, rb, nseg = nat
+                    rt, rb = rt[:nseg], rb[:nseg]
+                else:
+                    cand1, rt, rb = encode_seg_chunk(
+                        rids_c, qoffs_c, hits[sl], n_pad
+                    )
+                bits = flat_gate_seg(
+                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                    self._put(cand1), self._put(rt), self._put(rb), d_thr,
+                    window=window,
+                )
+            else:
+                cand = np.zeros((2, n_pad), np.int32)
+                cand[0, :take] = hits[sl]
+                cand[1, :take] = rq[sl].view(np.int32)
+                bits = flat_gate_packed(
+                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                    self._put(cand), d_thr, window=window,
+                )
+            pending.append((pos, take, bits))
+            pos += take
+        self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        return pending
+
+    def _gate_chunks_fetch(self, pending, N):
+        """Wait for the queued chunks (one ``.cpu()``) and unpack the
+        verdict bits."""
+        passes = np.zeros(N, bool)
+        exact = np.zeros(N, bool)
+        if not pending:
+            return passes, exact
+        t_f0 = time.perf_counter()
+        flat = torch.cat([bits for _, _, bits in pending], dim=1).cpu().numpy()
+        self.timer.accumulate("gate.fetch", time.perf_counter() - t_f0)
+        col = 0
+        for pos, take, bits in pending:
+            nw = bits.shape[1]
+            p, e = _unpack_gate_bits(flat[:, col : col + nw], take)
+            passes[pos : pos + take] = p
+            exact[pos : pos + take] = e
+            col += nw
+        return passes, exact
+
+    # ------------------------------------------------------------------
+    def _dedup_pairs(self, pass_r, pass_sid, rejected_keys, extra=None):
+        """Unique (read, db read) pairs in stream order of first
+        occurrence -- excluding already-rejected pairs and the optional
+        ``extra`` key array (pairs another in-flight wave already covers)
+        -- plus the per-candidate pair-key array."""
+        n_db = max(self.db.n_seqs, 1)
+        key = pass_r.astype(np.int64) * n_db + pass_sid
+        _, first_idx = np.unique(key, return_index=True)
+        first_idx.sort()
+        ck = key[first_idx]
+        if len(ck):
+            stale = rejected_keys.contains(ck)
+            if extra is not None and len(extra):
+                stale |= np.isin(ck, extra)
+            fresh = ~stale
+            first_idx, ck = first_idx[fresh], ck[fresh]
+        return (
+            pass_r[first_idx].astype(np.int64),
+            pass_sid[first_idx].astype(np.int64),
+            ck,
+            key,
+        )
+
+    def _judge_and_replay(
+        self, results, ck, pass_r, pass_sid, key,
+        rejected_keys, resolved, accepted_records, cfg,
+    ) -> None:
+        """Apply the coverage/identity accept gates (reference
+        src/alignmentFunctions.c:163) to per-pair NW stats, then replay the
+        candidate stream: the first candidate whose pair accepts wins its
+        read (NWaligned semantics, src/alignmentFunctions.c:172,189-190;
+        the verdict depends only on the two full reads, so all verdicts
+        can be computed up front and the sequential walk replayed for
+        free)."""
+        stats = np.asarray(results, np.int64).reshape(-1, 3)  # [K, 3]
+        length, idents, ylen = stats[:, 0], stats[:, 1], stats[:, 2]
+        ok = (length >= cfg.min_coverage * ylen) & (
+            idents >= cfg.min_identity * length
+        )
+        rejected_keys.add(ck[~ok])
+        acc_rows = np.flatnonzero(ok)
+        if not len(acc_rows):
+            return
+        order = acc_rows[np.argsort(ck[acc_rows], kind="stable")]
+        acc_sorted = ck[order]
+        # First candidate (stream order) whose pair accepted wins its read.
+        # Invariant: each read's candidates appear in stream order within
+        # the flat arrays (reads from different gate segments may
+        # interleave in id space, so pass_r is NOT globally monotonic);
+        # np.unique(return_index) picks the first array occurrence per
+        # read, which is that read's earliest surviving candidate.
+        p = np.searchsorted(acc_sorted, key)
+        pc = np.minimum(p, len(acc_sorted) - 1)
+        hit = acc_sorted[pc] == key
+        live = np.flatnonzero(hit & ~resolved[pass_r])
+        if len(live):
+            _, first = np.unique(pass_r[live], return_index=True)
+            win = live[first]
+            krow = order[pc[win]]  # stats row of the winning pair
+            resolved[pass_r[win]] = True
+            for i, k in zip(win, krow):
+                accepted_records.append(
+                    AcceptedRead(
+                        int(pass_r[i]), int(pass_sid[i]),
+                        int(length[k]), int(idents[k]), int(ylen[k]),
+                    )
+                )
+
+    # ------------------------------------------------------------------
+    def compare(self, q: SeqInfo) -> PipelineResult:
+        cfg = self.cfg
+        db = self.db
+        idx = self.index
+        self._nw_cells = 0
+        self._n_cands = 0
+
+        n = q.n_seqs
+        if n >= (1 << 20):
+            raise NotImplementedError(
+                "queries of >= 2^20 reads need the wide candidate format "
+                "(ROADMAP Queue 1: scale blocks)"
+            )
+        qlens = q.read_lens() if n else np.empty(0, np.int64)
+        thr = raw_score_threshold(qlens, db.total_len, cfg.min_e_value)
+
+        # shared packed-row length: one bucket covering both samples
+        max_rl = 1
+        if n:
+            max_rl = max(max_rl, int(qlens.max()))
+        if db.n_seqs:
+            max_rl = max(max_rl, int(self.db_read_lens.max()))
+        if max_rl > MAX_BUCKET:
+            raise NotImplementedError(_LONG_READS.format(MAX_BUCKET))
+        window = self._nw_bucket(max_rl)
+
+        # Queue the uploads and the on-device row build FIRST; they run
+        # while the host scans k-mers below.
+        dev = None
+        d_thr = None
+        if n and db.n_seqs:
+            with self.timer.phase("upload"):
+                dev = (
+                    self._rows_on_device(q.codes, q.start, qlens, window),
+                    self._packed_db_rows(window),
+                    self._put(np.asarray(qlens, np.int32)),
+                    self._d_dlen,
+                )
+                d_thr = self._put(thr)
+                self._last_dev = dev
+
+        with self.timer.phase("kmer_stream"):
+            kp, K_off, lo, cnt, Ccum, C_off = self._kmer_stream(q)
+        N_r = (C_off[1:] - C_off[:-1]) if n else np.empty(0, np.int64)
+
+        resolved = np.zeros(n, bool)
+        rejected_keys = _KeySet()
+        accepted_records: List[AcceptedRead] = []
+        # Per-stage counters: candidate counts, gate-pass counts and NW
+        # pair counts per stage.
+        ss = self.stage_stats = {}
+
+        if idx.n_entries and n and Ccum[-1]:
+            q_start = q.start.astype(np.int64)
+
+            def build_flat(read_ids, from_rank, to_rank):
+                """Flat (rids, hits, qoffs) int32 arrays for candidate
+                ranks [from, to) per read, read-major, stream order.
+                hits are index rows; qoffs are k-mer end offsets in
+                read-row coordinates."""
+                out_size = int(
+                    np.maximum(
+                        0, np.minimum(to_rank, N_r[read_ids]) - from_rank
+                    ).sum()
+                )
+                arrs = native.build_flat_arrays(
+                    read_ids, from_rank, to_rank, K_off, C_off,
+                    kp, lo, cnt, Ccum, q_start, FIXED_K, out_size,
+                )
+                if arrs is not None:
+                    return arrs
+                # numpy fallback: expand each read's slot list by its
+                # bucket counts and trim the rank window, all vectorized.
+                slot_lens = (K_off[read_ids + 1] - K_off[read_ids]).astype(
+                    np.int64
+                )
+                tot_slots = int(slot_lens.sum())
+                pre = np.concatenate(([0], np.cumsum(slot_lens)[:-1]))
+                slots = (
+                    np.repeat(K_off[read_ids], slot_lens)
+                    + np.arange(tot_slots, dtype=np.int64)
+                    - np.repeat(pre, slot_lens)
+                )
+                ts_full = np.repeat(slots, cnt[slots])
+                seg_lens = N_r[read_ids]
+                total_full = int(seg_lens.sum())
+                seg_pre = np.concatenate(([0], np.cumsum(seg_lens)[:-1]))
+                pos = np.arange(total_full, dtype=np.int64) - np.repeat(
+                    seg_pre, seg_lens
+                )
+                keep = (pos >= np.repeat(from_rank, seg_lens)) & (
+                    pos < np.repeat(to_rank, seg_lens)
+                )
+                gcs = (np.repeat(C_off[read_ids], seg_lens) + pos)[keep]
+                rids = np.repeat(read_ids, seg_lens)[keep]
+                ts = ts_full[keep]
+                hits = (lo[ts] + gcs - Ccum[ts]).astype(np.int32)
+                qoffs = (kp[ts] + FIXED_K - q_start[rids]).astype(np.int32)
+                return rids.astype(np.int32), hits, qoffs
+
+            def sids_of(hits):
+                if idx.packed is not None:
+                    return (idx.packed[hits] >> np.uint32(12)).astype(np.int64)
+                return np.asarray(idx.sid[hits], np.int64)
+
+            def gate_begin(read_ids, from_rank, to_rank, prebuilt=None,
+                           allow_small=True):
+                """Queue a gate for a rank window WITHOUT waiting; returns
+                a closure that fetches and maps the passes later, so the
+                gate's device time hides behind the NW wave and the
+                wave-1 judging.  Large stages run the SMALL extension
+                window first (these stages gate the full streams of
+                unresolved -- overwhelmingly random -- reads, whose walks
+                provably die inside it); the rare escapees re-gate at the
+                full window inside finish()."""
+                if prebuilt is not None:
+                    rids, hits, qoffs = prebuilt
+                else:
+                    with self.timer.phase("gate.build"):
+                        rids, hits, qoffs = build_flat(
+                            read_ids, from_rank, to_rank
+                        )
+                self._n_cands += len(rids)
+                w_small = self.cfg.gate_window_small
+                use_small = (
+                    allow_small
+                    and 0 < w_small < window
+                    and len(rids) > SMALL_TIER_MIN_CANDIDATES
+                )
+                w1 = w_small if use_small else window
+                rq = (rids.astype(np.uint32) << np.uint32(12)) | qoffs.astype(
+                    np.uint32
+                )
+                with self.timer.phase("resolve.extend"):
+                    pending = self._gate_chunks_dispatch(hits, rq, d_thr, dev, w1)
+
+                def finish():
+                    with self.timer.phase("resolve.extend"):
+                        passes, exact = self._gate_chunks_fetch(
+                            pending, len(hits)
+                        )
+                        if use_small:
+                            esc = np.flatnonzero(~exact)
+                            if len(esc):
+                                p2, _ = self._gate_chunks(
+                                    hits[esc], rq[esc], d_thr, dev, window
+                                )
+                                passes[esc] = p2
+                    pidx = np.flatnonzero(passes)
+                    return rids[pidx], sids_of(hits[pidx])
+
+                return finish
+
+            with self.timer.phase("resolve"):
+                # Stage 1: first few candidates of every read (most reads
+                # accept their first candidate, mirroring the reference's
+                # early exit).  Its NW wave is queued but not fetched, and
+                # the stage-2 gate for reads with no passing stage-1
+                # candidate -- which wave 1 cannot possibly resolve --
+                # queues behind that wave; only then is wave 1 fetched.
+                # The rare reads whose stage-1 pairs all got rejected gate
+                # their remainder afterwards, and one final NW wave
+                # resolves everything stage 2 surfaced.
+                F = cfg.first_window
+                if cfg.first_window_auto and idx.n_entries:
+                    # see Config.first_window_auto; the cap bounds only
+                    # the auto-widening -- an explicitly larger
+                    # first_window is honored.
+                    load = idx.n_entries / float(4 ** FIXED_K)
+                    F = max(
+                        F,
+                        min(64, F * max(1, int(np.ceil(2.0 * load)))),
+                    )
+                all_reads = np.flatnonzero(N_r > 0)
+                c0 = self._n_cands
+                # Stage 1 queued + speculative tail build: while stage 1's
+                # chunks compute on the device, the host builds the
+                # [F, N_r) candidate tails of ALL reads -- stage 2 gates
+                # the no-pass subset and stage 3 the rejected-leftover
+                # subset, both row-compressions of this one array.  Stage
+                # 1 keeps the full extension window (allow_small=False):
+                # half its candidates are true-pair seeds whose walks
+                # escape the small tier anyway.
+                fin1 = gate_begin(
+                    all_reads,
+                    np.zeros(len(all_reads), np.int64),
+                    np.minimum(N_r[all_reads], F),
+                    allow_small=False,
+                )
+                tail_pre = None
+                with self.timer.phase("gate.build"):
+                    tail_reads = np.flatnonzero(N_r > F)
+                    if len(tail_reads):
+                        tail_pre = build_flat(
+                            tail_reads,
+                            np.full(len(tail_reads), F, np.int64),
+                            N_r[tail_reads],
+                        )
+                pr1, ps1 = fin1()
+                cr1, cs1, ck1, key1 = self._dedup_pairs(
+                    pr1, ps1, rejected_keys
+                )
+                ss["s1"] = (self._n_cands - c0, len(pr1), len(cr1))
+                with self.timer.phase("resolve.nw"):
+                    P1, pend1 = self._nw_dispatch_pairs(cr1, cs1, qlens, dev)
+
+                has_pass = np.zeros(n, bool)
+                if len(pr1):
+                    has_pass[pr1] = True
+                spec = np.flatnonzero(~has_pass & (N_r > F))
+                pr2 = np.empty(0, np.int32)
+                ps2 = np.empty(0, np.int64)
+                fin2 = None
+                if len(spec):
+                    # Stage 2 queued behind wave 1 and fetched only after
+                    # judging: its compute overlaps the host judging.
+                    t_r, t_h, t_q = tail_pre
+                    with self.timer.phase("gate.build"):
+                        keep = ~has_pass[t_r]
+                        sub2 = (t_r[keep], t_h[keep], t_q[keep])
+                    fin2 = gate_begin(
+                        spec, np.full(len(spec), F, np.int64), N_r[spec],
+                        prebuilt=sub2,
+                    )
+
+                with self.timer.phase("resolve.nw"):
+                    results1 = self._nw_fetch_pairs(P1, pend1, "nw.fetch1")
+                self._judge_and_replay(
+                    results1, ck1, pr1, ps1, key1,
+                    rejected_keys, resolved, accepted_records, cfg,
+                )
+
+                leftover = np.flatnonzero(~resolved & (N_r > F) & has_pass)
+                fin3 = None
+                if len(leftover):
+                    # queue the leftover gate BEFORE fetching stage 2: it
+                    # computes while the host waits on stage 2.
+                    t_r, t_h, t_q = tail_pre
+                    with self.timer.phase("gate.build"):
+                        k3 = has_pass[t_r] & ~resolved[t_r]
+                        sub3 = (t_r[k3], t_h[k3], t_q[k3])
+                    fin3 = gate_begin(
+                        leftover, np.full(len(leftover), F, np.int64),
+                        N_r[leftover], prebuilt=sub3,
+                    )
+                if fin2 is not None:
+                    pr2, ps2 = fin2()
+                # Speculative wave A: NW the stage-2 passes' unique pairs
+                # NOW, before the leftover gate's fetch.  The leftover
+                # reads are disjoint from spec, so their pairs join as
+                # wave B and one combined judge replays both stream
+                # segments.
+                cr2, cs2, ck2, key2 = self._dedup_pairs(
+                    pr2, ps2, rejected_keys
+                )
+                ss["s2"] = (
+                    int(N_r[spec].sum() - len(spec) * F) if len(spec) else 0,
+                    len(pr2), len(cr2),
+                )
+                with self.timer.phase("resolve.nw"):
+                    P2, pend2 = self._nw_dispatch_pairs(cr2, cs2, qlens, dev)
+                pr3 = np.empty(0, np.int32)
+                ps3 = np.empty(0, np.int64)
+                if fin3 is not None:
+                    pr3, ps3 = fin3()
+                cr3, cs3, ck3, key3 = self._dedup_pairs(
+                    pr3, ps3, rejected_keys, extra=ck2
+                )
+                ss["s3"] = (
+                    int(N_r[leftover].sum() - len(leftover) * F)
+                    if len(leftover) else 0,
+                    len(pr3), len(cr3),
+                )
+                with self.timer.phase("resolve.nw"):
+                    P3, pend3 = self._nw_dispatch_pairs(cr3, cs3, qlens, dev)
+                    results2 = self._nw_fetch_pairs(P2, pend2, "nw.fetch2")
+                    results3 = self._nw_fetch_pairs(P3, pend3, "nw.fetch3")
+                if len(pr2) or len(pr3):
+                    self._judge_and_replay(
+                        np.concatenate([results2, results3]),
+                        np.concatenate([ck2, ck3]),
+                        np.concatenate([pr2, pr3]),
+                        np.concatenate([ps2, ps3]),
+                        np.concatenate([key2, key3]),
+                        rejected_keys, resolved, accepted_records, cfg,
+                    )
+
+        with self.timer.phase("render"):
+            accepted_records.sort(key=lambda a: a.qread)
+
+        return PipelineResult(
+            accepted=len(accepted_records),
+            n_query=n,
+            n_db=db.n_seqs,
+            pairs=[(a.qread, a.dbread) for a in accepted_records],
+            records=accepted_records,
+            timings=dict(self.timer.items()),
+            nw_cells=self._nw_cells,
+            n_candidates=self._n_cands,
+        )
+
+    # ------------------------------------------------------------------
+    def _materialize_chains(self, records: List[AcceptedRead]) -> None:
+        """Produce traceback chains for accepted pairs by running the
+        backpointer kernel + traceback on exactly those pairs (the accept
+        path used the stats-only aligner, which writes no bp tensor) over
+        the last compare's device tables; all chunks are queued before the
+        first is read back, with one ``.cpu()`` per chunk.  Cross-checks
+        each pair's path stats against the stats aligner's: the two
+        kernels must agree on every accepted pair."""
+        todo = [rec for rec in records if rec.chain is None]
+        if not todo:
+            return
+        assert self._last_dev is not None, "render before compare"
+        d_qp, d_dp, d_qlen, d_dlen = self._last_dev
+        r_ids = np.array([rec.qread for rec in todo], np.int64)
+        sids = np.array([rec.dbread for rec in todo], np.int64)
+        qlens = np.zeros(int(r_ids.max()) + 1, np.int64)
+        for rec in todo:
+            qlens[rec.qread] = rec.ylen
+        pending = []
+        for chunk, rpad, spad, L in self._nw_chunks(
+            r_ids, sids, qlens, render=True, count_cells=False
+        ):
+            res = nw_traceback_rows(
+                d_qp, d_dp, self._put(rpad), self._put(spad), d_qlen, d_dlen,
+                self.cfg.igap, self.cfg.egap, max_len=L,
+            )
+            pending.append((chunk, torch.cat([
+                torch.stack([res.length, res.identities, res.n_steps], 1),
+                res.chain,
+            ], dim=1)))
+        for chunk, packed in pending:
+            host = packed.cpu().numpy()
+            lengths, idents, nsteps = host[:, 0], host[:, 1], host[:, 2]
+            chains = host[:, 3:]
+            for b, i in enumerate(chunk):
+                rec = todo[i]
+                assert int(lengths[b]) == rec.length
+                assert int(idents[b]) == rec.identities
+                rec.n_steps = int(nsteps[b])
+                rec.chain = chains[b]
+
+    def render_report(self, q: SeqInfo, result: PipelineResult) -> bytes:
+        """Byte-identical -out file content (records in read order, matching
+        the reference at n_threads=1).  The block emission runs in the
+        native host library when available (batched backtrack + 60-col
+        render, native/host.c imsame_render_blocks); the Python path below
+        is the bit-identical fallback.  Renders the last compare's result
+        (see _materialize_chains)."""
+        self._materialize_chains(result.records)
+        db = self.db
+        recs = result.records
+        if recs and native.lib is not None:
+            blocks = self._render_blocks_native(q, recs)
+            if blocks is not None:
+                out = bytearray()
+                for a, block in zip(recs, blocks):
+                    out += format_record(
+                        a.qread, a.dbread, a.identities, a.length, a.ylen,
+                        block,
+                    )
+                return bytes(out)
+        out = bytearray()
+        for a in recs:
+            xs = int(db.start[a.dbread])
+            xe = db.read_end(a.dbread)
+            ys = int(q.start[a.qread])
+            ye = q.read_end(a.qread)
+            x_chars = CODE_TO_CHAR[db.codes[xs:xe]]
+            y_chars = CODE_TO_CHAR[q.codes[ys:ye]]
+            rec_x, rec_y, hx, hy, ml = backtrack_from_chain(
+                a.chain, a.n_steps, xe - xs, ye - ys, x_chars, y_chars
+            )
+            block, identities = render_alignment(rec_x, rec_y, hx, hy, ml)
+            assert identities == a.identities  # traceback/render agreement
+            out.extend(
+                format_record(
+                    a.qread, a.dbread, identities, a.length, a.ylen, block
+                )
+            )
+        return bytes(out)
+
+    def _render_blocks_native(self, q: SeqInfo, recs) -> Optional[list]:
+        """Batched native block render; returns per-record block bytes.
+        Cross-checks the emission-time identity count against the NW
+        stats, like the Python path's assert."""
+        db = self.db
+        P = len(recs)
+        qr = np.fromiter((a.qread for a in recs), np.int64, P)
+        dr = np.fromiter((a.dbread for a in recs), np.int64, P)
+        db_ends = np.append(db.start[1:], db.total_len)
+        q_ends = np.append(q.start[1:], q.total_len)
+        xoff = db.start[dr]
+        yoff = q.start[qr]
+        xlen = (db_ends[dr] - xoff).astype(np.int32)
+        ylen = (q_ends[qr] - yoff).astype(np.int32)
+        width = max(len(a.chain) for a in recs)
+        chains = np.zeros((P, width), np.int32)
+        for p, a in enumerate(recs):
+            chains[p, : len(a.chain)] = a.chain
+        n_steps = np.fromiter((a.n_steps for a in recs), np.int32, P)
+        span = 2 * np.maximum(xlen, ylen).astype(np.int64)
+        caps = 3 * span + 3 * (span // 60 + 2) + 8
+        out_off = np.zeros(P + 1, np.int64)
+        np.cumsum(caps, out=out_off[1:])
+        res = native.render_blocks(
+            chains, n_steps, xlen, ylen,
+            CODE_TO_CHAR[db.codes], xoff, CODE_TO_CHAR[q.codes], yoff,
+            out_off[:-1], int(out_off[-1]),
+        )
+        if res is None:
+            return None
+        out, out_len, identities = res
+        for p, a in enumerate(recs):
+            assert int(identities[p]) == a.identities
+        return [
+            out[out_off[p] : out_off[p] + out_len[p]].tobytes()
+            for p in range(P)
+        ]
