@@ -7,39 +7,76 @@ Phases, in order; any failure raises and exits non-zero:
   1. device  -- requires torch.cuda; prints the card's name and power limit
                 (nvidia-smi) and the torch / CUDA versions.
   2. build   -- compiles the native host runtime (gcc) and both NW kernels
-                (nvcc, sm_90a) from this checkout; prints each build's
-                seconds and the ptxas register report.
+                (nvcc, sm_90a, one process per source) from this checkout;
+                prints each build's seconds and the ptxas register report.
   3. kernels -- nw_stats and nw_forward against their plain torch versions
-                on the same CUDA tensors (seeded mixed pairs, lengths
-                2..256, L = 256) at the batch sizes the compare path uses,
-                and on pairs with empty and 1-base reads; every output
-                must be exactly equal (integer DP); times both with CUDA
-                events.
+                on the same CUDA tensors; every output must be exactly
+                equal (integer DP).  Pairs with empty and 1-base reads, and
+                pairs longer than the bucket (a batch's padding pairs
+                repeat read 0, which may be), at L = 128 and 256 and
+                appended to every long bucket's batch; the short path's
+                shapes at L = 256 (mixed pairs, lengths 2..256); every
+                long bucket at the batches the
+                compare and render paths use (lengths 0.6L..L): nw_stats at
+                B = 256 and, at 512/1024, 2048; nw_forward at the render
+                ladder's top batch (1024, 256, 64, 24); past the card's
+                resident warps (2 x nw_cuda.resident_slots + 8 pairs of
+                0.05L..L: nw_stats at 2048 and 3072, nw_forward at 512),
+                where each warp loops over pairs; and the test shapes
+                of the Pallas functions off the path (tests/test_nw_pallas.py,
+                tests/test_nw_stats.py, tests/test_longreads.py).  Times the
+                kernel and the plain version with CUDA events; past L = 256
+                the plain version runs once per (function, bucket), on the
+                batch and its 8 appended pairs, and the kernel is timed on
+                the batch alone (and on a smaller slice of it).
   4. slice   -- TorchEngine(db, Config(), device="cuda").compare(q) and
                 render_report on the 20k x 20k, 250 bp bench workload
                 (bench.py synth_pair(20000, 250, 0.5, seed=12345)): must
                 accept 10,005 reads with both kernels launched; then the
                 first 2,000 query reads against the same database, whose
                 report must hash to the JAX engine's (REF_2K_SHA256).
+  5. long    -- bench.py longread_bench's 512 reads of 300..3000 bp
+                (random.Random(4242); tests/util_synth.py): compare and
+                render must accept 256 reads with a report that hashes to
+                the JAX engine's (REF_LONG_SHA256), and nw_forward must run
+                a 24-pair chunk at L = 3072; prints the kernels' batch
+                shapes per bucket.
+  6. long20k -- 20,000 query reads of 300..3000 bp against 20,000 db reads,
+                half of them copies of query reads with 4% substitutions
+                and 1% indels (numpy, seed 2024): compare only; must accept
+                10,000 reads, each with its own copy; prints the kernels'
+                batch shapes per bucket.
 
-The last two lines are a JSON object with each kernel's launches on the
-20k compare + render, error and times, then {"ok": true, "device": ...}.
+A long path that launches a kernel past L = 256 on more pairs than the
+card's resident warps fails unless phase 3 held such a batch at that
+bucket.  Each path runs once more on the warm engine, traced by
+torch.profiler: a "profile" line gives that run's device-busy share and
+leading device work.  Each path's kernel launches are counted from 0 just before it and read
+just after.  The last two lines are a JSON object with each kernel's
+launches on those paths, error and times, then {"ok": true, "device": ...}.
 """
 
 import hashlib
 import json
+import random
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from imsame_tpu_torch import native
 from imsame_tpu_torch.config import Config
-from imsame_tpu_torch.io.fasta import SeqInfo
-from imsame_tpu_torch.ops import nw, nw_cuda
+from imsame_tpu_torch.constants import MAX_READ_SIZE
+from imsame_tpu_torch.io.fasta import SeqInfo, read_fasta
+from imsame_tpu_torch.ops import nw, nw_cuda, resolve
 from imsame_tpu_torch.pipeline import TorchEngine
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+from util_synth import mutate, random_read, write_fasta  # noqa: E402
 
 # sha256 of the report written by the JAX engine,
 # imsame_tpu.pipeline.TpuEngine(db, Config(mesh_shape=None)) on the CPU, for
@@ -48,8 +85,26 @@ from imsame_tpu_torch.pipeline import TorchEngine
 REF_2K_SHA256 = "36add83ee0c8ca80d331cf320f306c446ee44e4d28c43c93e18a762f1aded995"
 REF_2K_ACCEPTED = 2000
 ACCEPTED_20K = 10005  # the JAX engine's count on the whole workload
+# sha256 of the report written by the JAX engine,
+# TpuEngine(db, Config(mesh_shape=None, nw_stats_batches=(8,))) on the CPU,
+# for bench.py longread_bench's 512 query and 512 db reads (256 accepted,
+# 1,337,695 bytes).
+REF_LONG_SHA256 = "80e63da61e10b3c35b1f7aa510d4e5d8add261c2edb767df37c04f432b43ee3a"
+REF_LONG_ACCEPTED = 256
 L = 256
+LONG = (512, 1024, 2048, 3072)
 IGAP, EGAP = -5, -2
+KERNELS = {
+    "nw_stats": (nw_cuda.nw_stats, nw.nw_stats_batch),
+    "nw_forward": (nw_cuda.nw_forward, nw.nw_forward_batch),
+}
+# Pallas functions each kernel replaces: nw_stats_batch_pallas_pipe4,
+# _pipe3, _pipe2, _pipe and nw_stats_batch_pallas; nw_forward_batch_pallas
+# _pipe5 and nw_forward_batch_pallas
+REPLACES = {
+    "nw_stats": (1953, 1104, 1449, 1528, 1619),
+    "nw_forward": (2307, 248),
+}
 
 
 def synth_pair(n: int, read_len: int, match_frac: float, seed: int):
@@ -68,18 +123,37 @@ def synth_pair(n: int, read_len: int, match_frac: float, seed: int):
     return q, db[perm]
 
 
-def codes_to_seqinfo(reads: np.ndarray) -> SeqInfo:
-    n, rl = reads.shape
-    start = np.arange(n, dtype=np.int64) * rl
-    fresh = np.zeros(n * rl, bool)
-    fresh[start] = True
+def reads_to_seqinfo(reads) -> SeqInfo:
+    """SeqInfo of a list (or [n, len] array) of uint8 code reads."""
+    lens = np.array([len(r) for r in reads], np.int64)
+    start = np.zeros(len(reads), np.int64)
+    np.cumsum(lens[:-1], out=start[1:])
+    fresh = np.zeros(int(lens.sum()), bool)
+    fresh[start[lens > 0]] = True
     return SeqInfo(
-        codes=reads.reshape(-1).copy(), start=start, fresh=fresh,
-        headers=[b""] * n,
+        codes=np.concatenate(list(reads)).astype(np.uint8), start=start,
+        fresh=fresh, headers=[b""] * len(reads),
     )
 
 
-def mixed_pairs(rng, B: int):
+def mutate_np(rng, read: np.ndarray, sub: float, indel: float) -> np.ndarray:
+    """tests/util_synth.py mutate in numpy: per base a deletion (indel/2),
+    or an insertion of a random base before it (indel/2); a kept base is
+    substituted with probability sub.  Cut to MAX_READ_SIZE."""
+    n = len(read)
+    r = rng.random(n)
+    dele = r < indel / 2
+    ins = (r >= indel / 2) & (r < indel)
+    subd = rng.random(n) < sub
+    base = np.where(subd, (read + rng.integers(1, 4, n)) % 4, read)
+    reps = np.where(dele, 0, np.where(ins, 2, 1))
+    out = np.repeat(base, reps).astype(np.uint8)
+    first = np.cumsum(reps) - reps  # output slot of each base's first copy
+    out[first[ins]] = rng.integers(0, 4, int(ins.sum()))
+    return out[:MAX_READ_SIZE]
+
+
+def mixed_pairs(rng, B: int, L: int = L):
     """Half mutated copies (substitutions, some with a shifted suffix that
     forces gap moves), half random; lengths 2..L, both ends included."""
     xlen = rng.integers(2, L + 1, B).astype(np.int32)
@@ -96,11 +170,41 @@ def mixed_pairs(rng, B: int):
         if b % 3 == 0 and xlen[b] > 8:
             cut = int(rng.integers(4, xlen[b] - 4))
             Y[b][cut:] = np.roll(Y[b][cut:], int(rng.integers(1, 4)))
-    dev = torch.device("cuda")
-    return (
-        torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev),
-        torch.as_tensor(xlen, device=dev), torch.as_tensor(ylen, device=dev),
-    )
+    return to_cuda(X, Y, xlen, ylen)
+
+
+def long_pairs(rng, B: int, L: int, degenerate: bool = False,
+               lo_frac: float = 0.6):
+    """tests/test_longreads.py's pairs: lengths lo_frac*L..L, half copies
+    with 6% substitutions, every other one with a shifted suffix.  With
+    `degenerate` the last 8 pairs get the lengths of degenerate_lengths."""
+    lo = max(16, int(L * lo_frac))
+    xlen = rng.integers(lo, L + 1, B).astype(np.int32)
+    ylen = rng.integers(lo, L + 1, B).astype(np.int32)
+    X = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    Y = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    for b in range(B // 2):
+        ylen[b] = xlen[b]
+        Y[b] = X[b]
+        mut = rng.random(L) < 0.06
+        Y[b][mut] = (Y[b][mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        if b % 2 == 0:
+            cut = int(rng.integers(8, max(9, xlen[b] - 8)))
+            Y[b][cut:] = np.roll(Y[b][cut:], int(rng.integers(1, 5)))
+    if degenerate:
+        xlen[-8:], ylen[-8:] = degenerate_lengths(L)
+    return to_cuda(X, Y, xlen, ylen)
+
+
+def degenerate_lengths(L: int):
+    """(xlen, ylen) of 8 pairs: empty and 1-base reads, and reads longer
+    than the bucket L, which padding pairs (read 0) can be."""
+    return ((0, 0, 1, 1, L, 2 * L + 5, 3 * L, 300),
+            (0, 7, 1, L, 0, 2 * L - 3, 7, 3 * L))
+
+
+def to_cuda(*arrs):
+    return tuple(torch.as_tensor(a, device="cuda") for a in arrs)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -114,6 +218,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), milliseconds of that one call by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(got, want) -> int:
@@ -151,55 +266,136 @@ def phase_build() -> None:
     print(info["log"].strip())
 
 
-def phase_kernels() -> dict:
+def check_case(cases, name, args, Lb, *, reps=5, timed=None, note=""):
+    """Hold kernel `name` against its plain version on args (bucket Lb):
+    one plain call, timed; the kernel on the whole batch, then on its
+    first B pairs for each B in `timed` (default: the whole batch), each
+    against the same plain result and timed."""
+    wrapped, plain = KERNELS[name]
+    want, plain_ms = timed_once(lambda: plain(*args, IGAP, EGAP, max_len=Lb))
+    n = args[0].shape[0]
+    timed = sorted(set(timed or (n,)), reverse=True)
+    err = max_abs_err(wrapped(*args, IGAP, EGAP, max_len=Lb), want)
+    for b in timed:
+        part = [a[:b] for a in args]
+        got = wrapped(*part, IGAP, EGAP, max_len=Lb)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, [w[:b] for w in want]))
+        del got
+        ms = cuda_ms(lambda: wrapped(*part, IGAP, EGAP, max_len=Lb), reps)
+        top = b == timed[0]
+        cases.append(dict(kernel=name, L=Lb, B=b, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms if top else None, plain_B=n,
+                          note=note))
+        print(f"{name:10s} L={Lb} B={b}{note}: equal, kernel {ms:.3f} ms"
+              + (f", plain {plain_ms:.3f} ms (B={n})" if top else ""))
+    del want
+
+
+def phase_kernels() -> list:
     """Each kernel against its plain version, bit for bit."""
     rng = np.random.default_rng(20260)
-    # degenerate pairs: an empty read can be read 0 of a sample, and read
-    # 0 fills the padding pairs of every NW batch
+    cases = []
+    # degenerate pairs: an empty read can be read 0 of a sample, and read 0
+    # fills the padding pairs of every NW batch
     X, Y, xlen, ylen = mixed_pairs(rng, 4)
     xlen[:] = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
     ylen[:] = torch.tensor([0, 7, 1, L], dtype=torch.int32)
-    for wrapped, plain in ((nw_cuda.nw_stats, nw.nw_stats_batch),
-                           (nw_cuda.nw_forward, nw.nw_forward_batch)):
-        max_abs_err(wrapped(X, Y, xlen, ylen, IGAP, EGAP, max_len=L),
-                    plain(X, Y, xlen, ylen, IGAP, EGAP, max_len=L))
-    print("degenerate pairs (lengths 0 and 1): equal")
-    out = {}
-    for B in (256, 2048, 32768):
-        args = mixed_pairs(rng, B)
-        got = nw_cuda.nw_stats(*args, IGAP, EGAP, max_len=L)
-        want = nw.nw_stats_batch(*args, IGAP, EGAP, max_len=L)
+    for name in KERNELS:
+        check_case(cases, name, (X, Y, xlen, ylen), L, reps=3,
+                   note=" [lengths 0, 1]")
+    for Lb in (128, L):
+        X, Y, xlen, ylen = mixed_pairs(rng, 8, Lb)
+        for t, v in zip((xlen, ylen), degenerate_lengths(Lb)):
+            t[:] = torch.tensor(v, dtype=torch.int32)
+        for name in KERNELS:
+            check_case(cases, name, (X, Y, xlen, ylen), Lb, reps=3,
+                       note=" [empty, over-long]")
+    # the short path's shapes (as measured since the 256-bucket port)
+    for name, B in (("nw_stats", 256), ("nw_stats", 2048),
+                    ("nw_stats", 32768), ("nw_forward", 256),
+                    ("nw_forward", 2048)):
+        check_case(cases, name, mixed_pairs(rng, B), L, reps=10)
+    # the long buckets at the compare (stats) and render (forward) batches
+    for Lb in LONG:
+        B = 2048 if Lb <= 1024 else 256
+        check_case(cases, "nw_stats", long_pairs(rng, B + 8, Lb, True), Lb,
+                   timed=(B, 256))
+    for Lb, B in zip(LONG, (1024, 256, 64, 24)):
+        check_case(cases, "nw_forward", long_pairs(rng, B + 8, Lb, True),
+                   Lb, timed=(B,))
+    # past the card's resident warps, where each warp loops over pairs and
+    # reuses its strip scratch (the long compare's stats batches at 2048
+    # and 3072 hold thousands of pairs); lengths from 0.05L so that short
+    # and long pairs follow each other in one warp
+    for name, Lb in (("nw_stats", 2048), ("nw_stats", 3072),
+                     ("nw_forward", 512)):
+        B = 2 * nw_cuda.resident_slots(name, Lb) + 8
+        check_case(cases, name, long_pairs(rng, B + 8, Lb, True, 0.05), Lb,
+                   reps=2, timed=(B,), note=" [> resident warps]")
+    # test shapes of the Pallas functions no path here takes as such
+    for name, Lb, B, make, note in (
+        ("nw_forward", 128, 8, mixed_pairs, " [nw_forward_batch_pallas]"),
+        ("nw_stats", 128, 256, mixed_pairs, " [pipe2]"),
+        ("nw_stats", 128, 512, mixed_pairs, " [pipe2]"),
+        ("nw_stats", 256, 256, mixed_pairs, " [pipe2]"),
+        ("nw_stats", 128, 128, mixed_pairs, " [pipe]"),
+        ("nw_stats", 256, 64, mixed_pairs, " [pipe]"),
+        ("nw_stats", 128, 16, mixed_pairs, " [nw_stats_batch_pallas]"),
+        ("nw_stats", 512, 8, long_pairs, " [nw_stats_batch_pallas]"),
+        ("nw_stats", 1024, 8, long_pairs, " [nw_stats_batch_pallas]"),
+    ):
+        check_case(cases, name, make(rng, B, Lb), Lb, reps=3, note=note)
+    return cases
+
+
+def warm(label: str, fn):
+    """(fn(), its wall seconds) for a run on a warm engine, traced by
+    torch.profiler.  Prints the share of that wall during which the device
+    was busy (the union of the device-side events' intervals: kernels,
+    copies, sets) and the device work that leads it; the profiler's own
+    cost is in that wall."""
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        ms = cuda_ms(lambda: nw_cuda.nw_stats(*args, IGAP, EGAP, max_len=L), 10)
-        plain_ms = cuda_ms(
-            lambda: nw.nw_stats_batch(*args, IGAP, EGAP, max_len=L), 2
-        )
-        print(f"nw_stats   L={L} B={B}: equal, kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        out["nw_stats"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, B=B)
-    for B in (256, 2048):
-        args = mixed_pairs(rng, B)
-        got = nw_cuda.nw_forward(*args, IGAP, EGAP, max_len=L)
-        want = nw.nw_forward_batch(*args, IGAP, EGAP, max_len=L)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        del got, want
-        ms = cuda_ms(lambda: nw_cuda.nw_forward(*args, IGAP, EGAP, max_len=L), 10)
-        plain_ms = cuda_ms(
-            lambda: nw.nw_forward_batch(*args, IGAP, EGAP, max_len=L), 2
-        )
-        print(f"nw_forward L={L} B={B}: equal, kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        out["nw_forward"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, B=B)
-    return out
+        wall = time.perf_counter() - t0
+    spans, per = [], {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        n, t = per.get(e.name, (0, 0.0))
+        per[e.name] = (n + 1, t + (b - a) / 1e3)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):  # microseconds
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:4]
+    print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f} %, leading: "
+          + "; ".join(f"{k[:48]} {t:.1f} ms ({n})" for k, (n, t) in top))
+    return out, wall
+
+
+def zero_counts() -> None:
+    nw_cuda.nw_stats.launches = 0
+    nw_cuda.nw_forward.launches = 0
+
+
+def read_counts() -> dict:
+    return {"nw_stats": nw_cuda.nw_stats.launches,
+            "nw_forward": nw_cuda.nw_forward.launches}
 
 
 def phase_slice() -> dict:
     qc, dbc = synth_pair(20000, 250, 0.5, seed=12345)
-    q, db = codes_to_seqinfo(qc), codes_to_seqinfo(dbc)
-    nw_cuda.nw_stats.launches = 0
-    nw_cuda.nw_forward.launches = 0
+    q, db = reads_to_seqinfo(qc), reads_to_seqinfo(dbc)
+    zero_counts()
     t0 = time.perf_counter()
     eng = TorchEngine(db, Config(), device="cuda")
     t1 = time.perf_counter()
@@ -208,10 +404,7 @@ def phase_slice() -> dict:
     report = eng.render_report(q, res)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {
-        "nw_stats": nw_cuda.nw_stats.launches,
-        "nw_forward": nw_cuda.nw_forward.launches,
-    }
+    launches = read_counts()
     print(f"20k: engine init {t1 - t0:.3f} s, compare {t2 - t1:.3f} s, "
           f"render {t3 - t2:.3f} s, accepted {res.accepted}, "
           f"candidates {res.n_candidates}, nw_cells {res.nw_cells}, "
@@ -227,17 +420,13 @@ def phase_slice() -> dict:
         raise AssertionError("records are not one per read in read order")
 
     # steady state: the same compare again on the warm engine
-    t4 = time.perf_counter()
-    res_w = eng.compare(q)
-    t5 = time.perf_counter()
-    report_w = eng.render_report(q, res_w)
-    torch.cuda.synchronize()
-    t6 = time.perf_counter()
-    print(f"20k warm: compare {t5 - t4:.3f} s, render {t6 - t5:.3f} s")
+    res_w, t_c = warm("20k compare", lambda: eng.compare(q))
+    report_w, t_r = warm("20k render", lambda: eng.render_report(q, res_w))
+    print(f"20k warm (profiled): compare {t_c:.3f} s, render {t_r:.3f} s")
     if report_w != report:
         raise AssertionError("a second compare gave another report")
 
-    q2 = codes_to_seqinfo(qc[:2000])
+    q2 = reads_to_seqinfo(qc[:2000])
     res2 = eng.compare(q2)
     sha = hashlib.sha256(eng.render_report(q2, res2)).hexdigest()
     print(f"2k: accepted {res2.accepted}, report sha256 {sha}")
@@ -246,27 +435,185 @@ def phase_slice() -> dict:
     return launches
 
 
+def assert_checked(shapes: dict, cases: list) -> None:
+    """Fails if a path launched a kernel past L = 256 on more pairs than
+    the card's resident warps, at a bucket where the kernels phase held no
+    such batch against the plain version."""
+    for name, rows in shapes.items():
+        for Lb, B in set(rows):
+            slots = nw_cuda.resident_slots(name, Lb)
+            if Lb > nw_cuda.STRIP and B > slots and not any(
+                c["kernel"] == name and c["L"] == Lb and c["plain_B"] > slots
+                for c in cases
+            ):
+                raise AssertionError(
+                    f"{name} ran B={B} > {slots} resident warps at L={Lb}, "
+                    "a shape no kernel case checked")
+
+
+def print_shapes(label: str, shapes: dict) -> None:
+    """Each kernel's launches per bucket: their batch sizes."""
+    for name, rows in shapes.items():
+        per = {}
+        for Lb, B in rows:
+            per.setdefault(Lb, []).append(B)
+        print(f"{label} {name} batches per bucket: "
+              + json.dumps({str(k): v for k, v in sorted(per.items())}))
+
+
+def record_shapes(shapes: dict):
+    """Wrap the resolve step's kernel calls to record each launch's
+    (L, B); returns a function that restores them."""
+    saved = {}
+    for name in KERNELS:
+        real = getattr(resolve, name)
+        saved[name] = real
+
+        def rec(X, *a, _real=real, _name=name, **k):
+            shapes.setdefault(_name, []).append((X.shape[1], X.shape[0]))
+            return _real(X, *a, **k)
+
+        setattr(resolve, name, rec)
+    return lambda: [setattr(resolve, n, f) for n, f in saved.items()]
+
+
+def phase_long(cases: list) -> dict:
+    """bench.py longread_bench's workload, compare and render."""
+    rng = random.Random(4242)
+    nq = 512
+    q_reads = [random_read(rng, rng.randint(300, 3000)) for _ in range(nq)]
+    db_reads = [
+        mutate(rng, q_reads[i], 0.04, 0.01)
+        if i % 2 == 0
+        else random_read(rng, rng.randint(300, 3000))
+        for i in range(nq)
+    ]
+    rng.shuffle(db_reads)
+    with tempfile.TemporaryDirectory() as td:
+        write_fasta(Path(td) / "q.fa", q_reads, "q")
+        write_fasta(Path(td) / "db.fa", db_reads, "d")
+        q = read_fasta(str(Path(td) / "q.fa"))
+        db = read_fasta(str(Path(td) / "db.fa"))
+    shapes = {}
+    restore = record_shapes(shapes)
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        eng = TorchEngine(db, Config(), device="cuda")
+        t1 = time.perf_counter()
+        res = eng.compare(q)
+        t2 = time.perf_counter()
+        report = eng.render_report(q, res)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        restore()
+    sha = hashlib.sha256(report).hexdigest()
+    print(f"long: engine init {t1 - t0:.3f} s, compare {t2 - t1:.3f} s, "
+          f"render {t3 - t2:.3f} s, accepted {res.accepted}, "
+          f"candidates {res.n_candidates}, nw_cells {res.nw_cells}, "
+          f"report {len(report)} B, sha256 {sha}, launches {launches}")
+    print("long phases: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(res.timings.items())}))
+    print("long stages: " + json.dumps(eng.stage_stats))
+    print_shapes("long", shapes)
+    assert_checked(shapes, cases)
+    res_w, t_c = warm("long compare", lambda: eng.compare(q))
+    report_w, t_r = warm("long render", lambda: eng.render_report(q, res_w))
+    print(f"long warm (profiled): compare {t_c:.3f} s, render {t_r:.3f} s")
+    if res.accepted != REF_LONG_ACCEPTED or sha != REF_LONG_SHA256:
+        raise AssertionError("long-read report differs from the JAX engine's")
+    if report_w != report:
+        raise AssertionError("a second long compare gave another report")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if (3072, 24) not in shapes.get("nw_forward", []):
+        raise AssertionError("nw_forward ran no 24-pair chunk at L = 3072")
+    return launches
+
+
+def long_pair_np(n: int, seed: int):
+    """n query reads of 300..3000 bp; half the db reads are copies of
+    query reads (4% substitutions, 1% indels), the rest random; shuffled.
+    Returns (query reads, db reads, perm): db read k copies query read
+    perm[k] when perm[k] < n // 2."""
+    rng = np.random.default_rng(seed)
+    q = [rng.integers(0, 4, int(n_), dtype=np.uint8)
+         for n_ in rng.integers(300, 3001, n)]
+    nm = n // 2
+    db = [mutate_np(rng, q[i], 0.04, 0.01) for i in range(nm)]
+    db += [rng.integers(0, 4, int(n_), dtype=np.uint8)
+           for n_ in rng.integers(300, 3001, n - nm)]
+    perm = rng.permutation(n)
+    return q, [db[k] for k in perm], perm
+
+
+def phase_long20k(cases: list) -> dict:
+    t0 = time.perf_counter()
+    qr, dbr, perm = long_pair_np(20000, seed=2024)
+    q, db = reads_to_seqinfo(qr), reads_to_seqinfo(dbr)
+    print(f"long20k: data {time.perf_counter() - t0:.3f} s, "
+          f"{q.total_len} + {db.total_len} bases")
+    shapes = {}
+    restore = record_shapes(shapes)
+    try:
+        zero_counts()
+        t1 = time.perf_counter()
+        eng = TorchEngine(db, Config(), device="cuda")
+        t2 = time.perf_counter()
+        res = eng.compare(q)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        restore()
+    print(f"long20k: engine init {t2 - t1:.3f} s, compare {t3 - t2:.3f} s, "
+          f"accepted {res.accepted}, candidates {res.n_candidates}, "
+          f"nw_cells {res.nw_cells}, launches {launches}")
+    print("long20k phases: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(res.timings.items())}))
+    print("long20k stages: " + json.dumps(eng.stage_stats))
+    print_shapes("long20k", shapes)
+    assert_checked(shapes, cases)
+    res_w, t_c = warm("long20k compare", lambda: eng.compare(q))
+    print(f"long20k warm (profiled): compare {t_c:.3f} s")
+    nm = len(qr) // 2
+    own = [perm[s] == r and r < nm for r, s in res.pairs]
+    print(f"long20k: {sum(own)} accepted pairs are a query read and its copy")
+    if res.accepted != nm or not all(own) or res_w.pairs != res.pairs:
+        missing = sorted(set(range(nm)) - {r for r, _ in res.pairs})[:20]
+        raise AssertionError(
+            f"long20k accepted {res.accepted} != {nm} own copies; "
+            f"first missing query reads {missing}"
+        )
+    if launches["nw_stats"] < 1:
+        raise AssertionError(f"nw_stats was not launched: {launches}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
-    kernels = phase_kernels()
-    launches = phase_slice()
-    sources = {
-        "nw_stats": ("imsame_tpu_torch/csrc/nw_stats.cu",
-                     "imsame_tpu/ops/nw_pallas.py:1953"),
-        "nw_forward": ("imsame_tpu_torch/csrc/nw_forward.cu",
-                       "imsame_tpu/ops/nw_pallas.py:2307"),
-    }
+    cases = phase_kernels()
+    paths = [phase_slice(), phase_long(cases), phase_long20k(cases)]
     print(smi)
-    print(json.dumps({"kernels": [
-        {
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name],
-            "max_abs_err": kernels[name]["max_abs_err"],
-            "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
-        }
-        for name, (src, rep) in sources.items()
-    ]}))
+    kernels = []
+    for name, lines in REPLACES.items():
+        mine = [c for c in cases if c["kernel"] == name]
+        top = max((c for c in mine if c["plain_ms"] is not None),
+                  key=lambda c: (c["L"], c["B"]))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"imsame_tpu_torch/csrc/{name}.cu",
+            "replaces": ", ".join(f"imsame_tpu/ops/nw_pallas.py:{n}"
+                                  for n in lines),
+            "launches": sum(p[name] for p in paths),
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "L": top["L"], "B": top["B"], "plain_B": top["plain_B"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

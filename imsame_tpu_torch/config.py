@@ -66,7 +66,8 @@ class Config:
     # render ladder is capped per length bucket so B*8*L^2 stays under it.
     nw_render_bp_budget: int = 2 << 30
     # Length buckets (reads padded up to the smallest bucket >= their
-    # len).  The engine runs buckets up to 256 (pipeline.MAX_BUCKET).
+    # len).  The CUDA kernels are instantiated for exactly these
+    # (ops/nw_cuda.py LENGTHS); 3072 covers MAX_READ_SIZE.
     length_buckets: tuple = (128, 256, 512, 1024, 2048, 3072)
 
     def validate(self) -> None:

@@ -1,0 +1,116 @@
+// nw_common.cuh: what the two NW kernels, nw_stats.cu (function S) and
+// nw_forward.cu (function F), share: constants, the length buckets, the
+// strip-boundary hand-off between strips of one pair, the row shift of the
+// wavefront, the best-cell fold and the launch geometry.  nw_stats.cu
+// describes the design (warp per pair, K rows per lane, strips of 32*K
+// rows past L = 256, a per-warp boundary in global memory).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace nw {
+
+constexpr int kPoint = 4;
+constexpr int kNeg = -(1 << 28);
+constexpr int kNoBest = -2147483647;  // -(2^31) + 1, below any packed cell
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsPerBlock = 4;  // pairs per block: the batch tile
+
+// (L, K, NS) of every length bucket: K rows per lane, NS strips of 32*K
+#define NW_BUCKETS(F) \
+  F(128, 4, 1) F(256, 8, 1) F(512, 8, 2) F(1024, 8, 4) F(2048, 8, 8) \
+  F(3072, 8, 12)
+
+// Strip boundary of one warp slot, [2, 2L] int4 in global memory:
+//   sw[c] = {T, v} of the strip's last row and {T, v} of the row above it
+//           at column c (v: the kernel's per-cell state, path stats or run),
+//   mc[c] = the column gap tracker of column c as it leaves the last row.
+// Columns past the query read hold NEG / 0.
+__device__ __forceinline__ int4 load_sw(const int4* sw, int c, int yl) {
+  return c < yl ? __ldcg(sw + c) : make_int4(kNeg, 0, kNeg, 0);
+}
+__device__ __forceinline__ int4 load_mc(const int4* mc, int c, int yl) {
+  return c <= yl - 2 ? __ldcg(mc + c) : make_int4(kNeg, 0, 0, 0);
+}
+
+// Lane 31 hands the strip below its boundary on diagonal d of the strip
+// whose last row is r_last: `last` is that row's cell (column d - r_last),
+// `above` the row above's (column d - r_last + 1), `mc` the column tracker
+// leaving the last row (column d - r_last - 1).  The strip reads its own
+// top boundary from the same buffer at columns d - r0 and d - r0 + 1, at
+// least H - 2 columns ahead of these writes, so no column is overwritten
+// before it is read.
+__device__ __forceinline__ void hand_off(int4* sw, int4* mc, int d,
+                                         int r_last, int yl, int2 last,
+                                         int2 above, int4 mc_out) {
+  const int c1 = d - r_last;
+  if (c1 >= 0 && c1 < yl) __stcg(reinterpret_cast<int2*>(sw + c1), last);
+  if (c1 + 1 >= 0 && c1 + 1 < yl)
+    __stcg(reinterpret_cast<int2*>(sw + c1 + 1) + 1, above);
+  if (c1 - 1 >= 0 && c1 - 1 <= yl - 2) __stcg(mc + c1 - 1, mc_out);
+}
+
+// One past the last diagonal on which strip rows r0 .. r0+H-1 hold a valid
+// cell, at least r0 (a strip of an empty read has none).  A pair sweeps at
+// most the bucket's nd = 2L-1 diagonals, even when its lengths exceed L: a
+// batch's padding pairs repeat read 0, which may be longer than the
+// chunk's bucket, and the plain version stops there too.
+__device__ __forceinline__ int strip_end(int r0, int H, int xl, int yl,
+                                         int nd) {
+  return max(r0, min(min(r0 + H, xl) - 1 + yl, nd));
+}
+
+// Moves the wavefront one row down: a lane's row k takes row k-1, its
+// first row the previous lane's last, and lane 0's first row takes `top`.
+template <int K>
+__device__ __forceinline__ void shift_down(int (&v)[K], int lane, int top) {
+  const int up = __shfl_up_sync(kFull, v[K - 1], 1);
+#pragma unroll
+  for (int k = K - 1; k > 0; --k) v[k] = v[k - 1];
+  v[0] = lane ? up : top;
+}
+
+// Folds diagonal d's best last-row / last-column candidate (score << 13 |
+// i, a lex-max) into the running best (bs, bi, bj).  Warp-uniform; true
+// when the diagonal's best became the running best.  Order-free, so it
+// folds across strips as within one (ops/nw.py _best_fold).
+__device__ __forceinline__ bool fold_best(bool has_elig, int best_packed,
+                                          int d, int& bs, int& bi, int& bj) {
+  if (!__any_sync(kFull, has_elig)) return false;
+  const int dbest = __reduce_max_sync(kFull, best_packed);
+  const int ds = dbest >> 13;  // floor(dbest / 8192)
+  const int di = dbest & 8191;
+  if (ds < bs || (ds == bs && di < bi)) return false;
+  bs = ds;
+  bi = di;
+  bj = d - di;
+  return true;
+}
+
+// Copies a pair's query row into the warp's shared row.
+__device__ __forceinline__ void load_row(uint8_t* ys, const uint8_t* yrow,
+                                         int lane, int L) {
+  __syncwarp();  // the previous pair is done with ys
+  for (int c = lane; c < L; c += 32) ys[c] = yrow[c];
+  __syncwarp();
+}
+
+// Warp slots of `kernel` resident on the whole card at once.
+template <typename Kernel>
+int resident_slots(Kernel kernel) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                32 * kWarpsPerBlock, 0);
+  return blocks * sms * kWarpsPerBlock;
+}
+
+// A launch over B pairs needs a positive multiple of kWarpsPerBlock slots.
+inline bool bad_launch(int B, int n_slots) {
+  return B <= 0 || n_slots <= 0 || n_slots % kWarpsPerBlock;
+}
+
+}  // namespace nw

@@ -5,17 +5,27 @@
   nw_forward  csrc/nw_forward.cu  function F (forward NW with packed
                                   backpointer words) per pair
 
-Both sources are compiled on first use by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface in the repository's ``build/``
-directory, keyed by the sources' hash, and loaded with ctypes.  Nothing is
-built or imported at module import.
+Both sources (and the header they share, csrc/nw_common.cuh) are
+compiled on first use by ``nvcc`` for ``sm_90a`` (one process per source,
+run together) and linked into one shared library with a plain C interface
+in the repository's ``build/`` directory, keyed by the sources' hash, and
+loaded with ctypes.  Nothing is built or imported at
+module import.
 
 Each wrapper takes the plain torch version's arguments.  A CPU tensor
 goes to the plain version in ops/nw.py; a CUDA tensor launches the kernel
 on the current stream, or raises: there is no fallback.  The wrapper
-validates device, dtype, shape and contiguity, allocates its outputs with
-``torch.empty``, raises if the launcher returns a CUDA error, and adds one
-to its ``launches`` attribute per kernel launch.
+validates device, dtype, shape and contiguity, allocates its outputs (and,
+past L = 256, the kernel's strip-boundary scratch) with ``torch.empty``,
+raises if the launcher returns a CUDA error, and adds one to its
+``launches`` attribute per kernel launch.
+
+Both kernels are instantiated for every length bucket of
+``Config.length_buckets``.  Up to L = 256 a launch has one warp per pair.
+Past it each warp walks its pair's rows in strips of 256 and hands each
+strip's bottom boundary to the next through a scratch of 2 x 2L x 16
+bytes per warp, so a launch holds at most as many warps as fit on the
+card at once (``*_slots``), and each warp loops over pairs.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import time
 
 import torch
 
+from ..config import Config
 from ..native import BUILD_DIR
 from .nw import NWResult, NWStatsResult, nw_forward_batch, nw_stats_batch
 
@@ -36,18 +47,41 @@ _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 _SOURCES = ("nw_stats.cu", "nw_forward.cu")
+_HEADERS = ("nw_common.cuh",)  # included by both sources
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 TILE = 4  # pairs per thread block (kWarpsPerBlock in both sources)
-LENGTHS = (128, 256)  # buckets the kernels are instantiated for
+LENGTHS = Config.length_buckets  # buckets the kernels are instantiated for
+STRIP = 256  # rows per strip past this length (32 lanes x 8 rows)
 
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = os.path.join(home, "bin", "nvcc")
     return path if os.path.exists(path) else "nvcc"
+
+
+def _run(cmds: list, timeout: int) -> str:
+    """Run the commands at once; returns their joined output, raises
+    CalledProcessError for the first that failed."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode:
+            raise subprocess.CalledProcessError(p.returncode, c, out)
+    return "".join(outs)
 
 
 def build() -> dict:
@@ -57,7 +91,7 @@ def build() -> dict:
     failed build."""
     srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + [os.path.join(_CSRC, s) for s in _HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, f"libnw_{h.hexdigest()[:16]}.so")
@@ -66,15 +100,16 @@ def build() -> dict:
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        r = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-            capture_output=True, text=True, timeout=600,
-        )
-        if r.returncode:
-            raise subprocess.CalledProcessError(
-                r.returncode, r.args, r.stdout, r.stderr
-            )
-        log = r.stdout + r.stderr
+        objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+        try:
+            log = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s]
+                        for o, s in zip(objs, srcs)], timeout=900)
+            log += _run([[_nvcc(), *ARCH, "-shared", "-o", tmp, *objs]],
+                        timeout=300)
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
         os.replace(tmp, so)
     return {"path": so, "seconds": time.perf_counter() - t0, "log": log}
 
@@ -84,10 +119,35 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nw_stats_launch.restype = i
-    lib.nw_stats_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
+    lib.nw_stats_launch.argtypes = [
+        p, p, p, p, i, i, i, i, p, i, p, p, p, p, p, p
+    ]
     lib.nw_forward_launch.restype = i
-    lib.nw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
+    lib.nw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, p, i, p, p, p, p, p]
+    for name in ("nw_stats_slots", "nw_forward_slots"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i]
     return lib
+
+
+@functools.cache
+def resident_slots(kernel: str, L: int) -> int:
+    """Warps of `kernel` ("nw_stats" or "nw_forward") at bucket L that fit
+    on the current card at once: past L = STRIP a launch holds at most
+    this many, each looping over pairs."""
+    n = getattr(_lib(), f"{kernel}_slots")(L)
+    if n <= 0:
+        raise RuntimeError(f"{kernel}: no resident warp at L={L}")
+    return n
+
+
+def _slots_and_scratch(kernel: str, B: int, L: int, dev):
+    """Warp slots of a launch over B pairs and its strip-boundary scratch
+    (None up to L = STRIP, where a launch has one warp per pair)."""
+    if L <= STRIP:
+        return B, None
+    n = min(B, resident_slots(kernel, L))
+    return n, torch.empty((n, 2, 2 * L, 4), dtype=torch.int32, device=dev)
 
 
 def _check_inputs(X, Y, xlen, ylen, max_len):
@@ -126,10 +186,12 @@ def nw_stats(X, Y, xlen, ylen, igap: int, egap: int, *, max_len: int):
         raise ValueError(f"nw_stats runs on cpu or cuda, not {X.device}")
     B, L = _check_inputs(X, Y, xlen, ylen, max_len)
     outs = [torch.empty(B, dtype=torch.int32, device=X.device) for _ in range(5)]
+    n_slots, scratch = _slots_and_scratch("nw_stats", B, L, X.device)
     err = _lib().nw_stats_launch(
         X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
-        B, L, int(igap), int(egap), *[o.data_ptr() for o in outs],
-        _stream_ptr(X.device),
+        B, L, int(igap), int(egap),
+        None if scratch is None else scratch.data_ptr(), n_slots,
+        *[o.data_ptr() for o in outs], _stream_ptr(X.device),
     )
     if err:
         raise RuntimeError(f"nw_stats launch failed: cudaError_t {err}")
@@ -150,12 +212,15 @@ def nw_forward(X, Y, xlen, ylen, igap: int, egap: int, *, max_len: int):
     if X.device.type != "cuda":
         raise ValueError(f"nw_forward runs on cpu or cuda, not {X.device}")
     B, L = _check_inputs(X, Y, xlen, ylen, max_len)
+    # the kernel writes every word of bp (-1 outside the valid region)
     bp = torch.empty((B, 2 * L - 1, L), dtype=torch.int32, device=X.device)
     best = [torch.empty(B, dtype=torch.int32, device=X.device) for _ in range(3)]
+    n_slots, scratch = _slots_and_scratch("nw_forward", B, L, X.device)
     err = _lib().nw_forward_launch(
         X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
-        B, L, int(igap), int(egap), bp.data_ptr(),
-        *[o.data_ptr() for o in best], _stream_ptr(X.device),
+        B, L, int(igap), int(egap),
+        None if scratch is None else scratch.data_ptr(), n_slots,
+        bp.data_ptr(), *[o.data_ptr() for o in best], _stream_ptr(X.device),
     )
     if err:
         raise RuntimeError(f"nw_forward launch failed: cudaError_t {err}")

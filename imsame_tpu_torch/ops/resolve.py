@@ -5,6 +5,11 @@ device gathers the 2-bit-packed read rows already resident on it, unpacks
 them to code matrices and runs the aligner kernels of ops/nw_cuda.py (the
 plain torch versions of ops/nw.py on a CPU device).  Per alignment the
 host-to-device traffic is 8 bytes instead of 2*L.
+
+Where the JAX engine (imsame_tpu/ops/resolve.py) picks one of several
+Pallas layouts by batch divisibility and length bucket, each call here
+runs one kernel on any batch padded to the kernels' 4-pair tile, at every
+bucket of Config.length_buckets (128 .. 3072).
 """
 
 from __future__ import annotations
@@ -64,7 +69,11 @@ def nw_traceback_rows(
 ) -> ResolveNWResult:
     """Render resolve: the backpointer kernel (function F) and the batched
     traceback on the per-pair bp layout; returns per-pair path stats plus
-    the traceback chain."""
+    the traceback chain.  The nw_forward kernel replaces
+    nw_forward_batch_pallas_pipe5 (batches that are multiples of 256:
+    the 128-512 buckets' ladders, 1024's 256) and
+    nw_forward_batch_pallas (the other batches: 64/8 pairs at 2048, 24/8
+    at 3072 under the default render budget)."""
     B = r.shape[0]
     X, Y, xl, yl = _gather(qp, dp, _pad_to_tile(r), _pad_to_tile(s), qlen, dlen, max_len)
     res = nw_forward(X, Y, xl, yl, igap, egap, max_len=max_len)
@@ -94,7 +103,11 @@ def nw_stats_rows(
     accept gate needs (reference accept: src/alignmentFunctions.c:163) as
     one stacked [3, B] int32 array (length, identities, ylen).  The
     traceback chain for *accepted* pairs is produced later by
-    nw_traceback_rows at render time."""
+    nw_traceback_rows at render time.  The nw_stats kernel replaces
+    nw_stats_batch_pallas_pipe4 (batches that are multiples of 2048 at
+    256 and 512, of 1024 at 1024) and nw_stats_batch_pallas_pipe3 (the other
+    multiples of 256, every bucket), and the fallbacks for smaller
+    batches, nw_stats_batch_pallas_pipe and nw_stats_batch_pallas."""
     B = rs.shape[1]
     X, Y, xl, yl = _gather(
         qp, dp, _pad_to_tile(rs[0]), _pad_to_tile(rs[1]), qlen, dlen, max_len

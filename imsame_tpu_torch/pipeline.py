@@ -34,9 +34,12 @@ byte-identical report to the reference binary at n_threads=1.
 
 Device work is queued asynchronously on the current CUDA stream; each
 stage reads its results back with one ``.cpu()``, which is where the host
-waits.  Reads up to 256 bp (length buckets 128 and 256) and the packed
-index format (n_db < 2^20 reads, n_query < 2^20 reads) are supported;
-anything else raises NotImplementedError.
+waits.  Reads up to the reference's MAX_READ_SIZE = 3000 bp run, padded
+to the length buckets of Config.length_buckets (128 .. 3072); a longer
+read aborts with the reference's ValueError once it reaches the gapped
+aligner, as in the JAX engine.  The packed index format (n_db < 2^20
+reads, n_query < 2^20 reads) is supported; the wide formats raise
+NotImplementedError.
 
 Row-coordinate bound reduction (used by the packed extension): the
 reference clamps the extension walk with four checks -- array end, and the
@@ -70,19 +73,32 @@ from .ops.extend_packed import pack_stream, rows_from_stream
 from .ops.resolve import nw_stats_rows, nw_traceback_rows
 from .utils.timing import PhaseTimer
 
-# Largest length bucket the engine runs; longer reads need the long-read
-# buckets (ROADMAP Queue 1, "Long-read envelope").
-MAX_BUCKET = 256
-# Gate stages above this many candidates run Config.gate_window_small
-# first; below it the escalation's extra device round trip cannot repay
-# the narrower window.
+# Up to this extension window, gate stages above SMALL_TIER_MIN_CANDIDATES
+# candidates run Config.gate_window_small first (below it the escalation's
+# extra device round trip cannot repay the narrower window) and stage 1
+# gates at the full window.  Past it every stage gates at the small window
+# first and re-gates only the inexact escapees at the full window, as the
+# JAX engine does for window > 256.
+SHORT_WINDOW = 256
 SMALL_TIER_MIN_CANDIDATES = 2_000_000
+# Candidates x window of one gate chunk past SHORT_WINDOW: bounds the
+# eager gate's [chunk, window] int32 device temporaries to this many
+# elements each (87,360 candidates at the 3072 window; up to SHORT_WINDOW
+# the chunks are Config.gate_chunks as they are).  The verdict bits do not
+# depend on chunking.
+GATE_MAX_ELEMENTS = 1 << 28
 # Segment-encoded gate words hold the index row in 25 bits.
 SEG_MAX_INDEX_ROWS = 1 << 25
-_LONG_READS = (
-    "reads longer than {} bp need the long-read length buckets, not yet "
-    "ported to imsame_tpu_torch (ROADMAP Queue 1: long-read envelope)"
-)
+
+
+def gate_chunk_sizes(chunks, window: int) -> list:
+    """Gate chunk sizes at an extension window, largest first: the
+    configured sizes, capped past SHORT_WINDOW at GATE_MAX_ELEMENTS //
+    window candidates (a multiple of 32)."""
+    if window > SHORT_WINDOW:
+        cap = max(32, GATE_MAX_ELEMENTS // window // 32 * 32)
+        chunks = {min(z, cap) for z in chunks}
+    return sorted(set(chunks), reverse=True)
 
 
 @dataclasses.dataclass(slots=True)
@@ -173,9 +189,10 @@ class TorchEngine:
         self.device = torch.device(device)
         self.timer = PhaseTimer()
         self.db_read_lens = db.read_lens()
-        max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
-        if max_dlen > MAX_BUCKET:
-            raise NotImplementedError(_LONG_READS.format(MAX_BUCKET))
+        if db.n_seqs:
+            # a db read past the largest length bucket aborts here with the
+            # reference's error, as in the JAX engine
+            self._nw_bucket(int(self.db_read_lens.max()))
         if db.n_seqs >= (1 << 20):
             raise NotImplementedError(
                 "databases of >= 2^20 reads need the wide index format "
@@ -420,7 +437,7 @@ class TorchEngine:
         (flat_gate_packed); both give the same bits."""
         d_qp, d_dp, d_qlen, d_dlen = dev
         N = len(hits)
-        sizes = sorted(self.cfg.gate_chunks, reverse=True)
+        sizes = gate_chunk_sizes(self.cfg.gate_chunks, window)
         seg = self._d_idx_tab.shape[0] <= SEG_MAX_INDEX_ROWS
         pending = []
         # gate.dispatch / gate.fetch are sub-spans of resolve.extend.
@@ -579,8 +596,6 @@ class TorchEngine:
             max_rl = max(max_rl, int(qlens.max()))
         if db.n_seqs:
             max_rl = max(max_rl, int(self.db_read_lens.max()))
-        if max_rl > MAX_BUCKET:
-            raise NotImplementedError(_LONG_READS.format(MAX_BUCKET))
         window = self._nw_bucket(max_rl)
 
         # Queue the uploads and the on-device row build FIRST; they run
@@ -667,11 +682,10 @@ class TorchEngine:
                 """Queue a gate for a rank window WITHOUT waiting; returns
                 a closure that fetches and maps the passes later, so the
                 gate's device time hides behind the NW wave and the
-                wave-1 judging.  Large stages run the SMALL extension
-                window first (these stages gate the full streams of
-                unresolved -- overwhelmingly random -- reads, whose walks
-                provably die inside it); the rare escapees re-gate at the
-                full window inside finish()."""
+                wave-1 judging.  Large stages, and every stage past
+                SHORT_WINDOW, run the SMALL extension window first (random
+                reads' walks provably die inside it); the escapees
+                re-gate at the full window inside finish()."""
                 if prebuilt is not None:
                     rids, hits, qoffs = prebuilt
                 else:
@@ -681,10 +695,10 @@ class TorchEngine:
                         )
                 self._n_cands += len(rids)
                 w_small = self.cfg.gate_window_small
-                use_small = (
-                    allow_small
-                    and 0 < w_small < window
-                    and len(rids) > SMALL_TIER_MIN_CANDIDATES
+                use_small = 0 < w_small < window and (
+                    window > SHORT_WINDOW
+                    or (allow_small
+                        and len(rids) > SMALL_TIER_MIN_CANDIDATES)
                 )
                 w1 = w_small if use_small else window
                 rq = (rids.astype(np.uint32) << np.uint32(12)) | qoffs.astype(
@@ -736,10 +750,10 @@ class TorchEngine:
                 # chunks compute on the device, the host builds the
                 # [F, N_r) candidate tails of ALL reads -- stage 2 gates
                 # the no-pass subset and stage 3 the rejected-leftover
-                # subset, both row-compressions of this one array.  Stage
-                # 1 keeps the full extension window (allow_small=False):
-                # half its candidates are true-pair seeds whose walks
-                # escape the small tier anyway.
+                # subset, both row-compressions of this one array.  Up to
+                # SHORT_WINDOW stage 1 keeps the full extension window
+                # (allow_small=False): half its candidates are true-pair
+                # seeds whose walks escape the small tier anyway.
                 fin1 = gate_begin(
                     all_reads,
                     np.zeros(len(all_reads), np.int64),

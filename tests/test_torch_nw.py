@@ -41,6 +41,26 @@ def _mixed_pairs(rng, B, L):
     return X, Y, xlen, ylen
 
 
+def _long_pairs(rng, B, L, lo_frac=0.6):
+    """Mutated-copy and random pairs with lengths in [lo_frac*L, L], as in
+    tests/test_longreads.py: half copies with 6% substitutions, every
+    other one with a shifted suffix that forces gap moves."""
+    lo = max(16, int(L * lo_frac))
+    xlen = rng.integers(lo, L + 1, B).astype(np.int32)
+    ylen = rng.integers(lo, L + 1, B).astype(np.int32)
+    X = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    Y = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    for b in range(B // 2):
+        ylen[b] = xlen[b]
+        Y[b] = X[b].copy()
+        mut = rng.random(L) < 0.06
+        Y[b][mut] = (Y[b][mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        if b % 2 == 0:
+            cut = int(rng.integers(8, max(9, xlen[b] - 8)))
+            Y[b][cut:] = np.roll(Y[b][cut:], int(rng.integers(1, 5)))
+    return X, Y, xlen, ylen
+
+
 def _both(arrs):
     return [jnp.asarray(a) for a in arrs], [torch.as_tensor(a) for a in arrs]
 
@@ -78,6 +98,49 @@ def test_nw_forward_and_traceback_match_jax(seed, L):
         _eq(getattr(tb_got, f), getattr(tb_want, f), f)
 
 
+@pytest.mark.parametrize("L", [512, 1024, 2048, 3072])
+def test_nw_stats_long_matches_jax(L):
+    """The long-read buckets, where the kernel walks its rows in strips."""
+    j, t = _both(_long_pairs(np.random.default_rng(300 + L), 4, L))
+    want = jnw.nw_stats_batch(*j, IGAP, EGAP, max_len=L)
+    got = tnw.nw_stats_batch(*t, IGAP, EGAP, max_len=L)
+    for f in want._fields:
+        _eq(getattr(got, f), getattr(want, f), f)
+
+
+@pytest.mark.parametrize("L", [512, 3072])
+def test_nw_forward_and_traceback_long_match_jax(L):
+    j, t = _both(_long_pairs(np.random.default_rng(400 + L), 4, L))
+    want = jnw.nw_forward_batch(*j, IGAP, EGAP, max_len=L)
+    got = tnw.nw_forward_batch(*t, IGAP, EGAP, max_len=L)
+    for f in want._fields:
+        _eq(getattr(got, f), getattr(want, f), f)
+    tb_want = jtb.traceback_batch(
+        want.bp, want.best_i, want.best_j, j[0], j[1], max_len=L
+    )
+    del want
+    tb_got = ttb.traceback_batch(got.bp, got.best_i, got.best_j, max_len=L)
+    for f in tb_want._fields:
+        _eq(getattr(tb_got, f), getattr(tb_want, f), f)
+
+
+@pytest.mark.parametrize("L", [128, 512])
+def test_nw_empty_and_over_long_lengths_match_jax(L):
+    """Lengths 0, 1 and past L: a batch's padding pairs repeat read 0,
+    which may be empty or longer than the chunk's bucket.  The kernels
+    must equal these results too (chip_smoke.py holds them to it)."""
+    X, Y, _, _ = _mixed_pairs(np.random.default_rng(500 + L), 8, L)
+    xlen = np.array([0, 0, 1, 1, L, 2 * L + 5, 3 * L, 300], np.int32)
+    ylen = np.array([0, 7, 1, L, 0, 2 * L - 3, 7, 3 * L], np.int32)
+    j, t = _both((X, Y, xlen, ylen))
+    for jf, tf in ((jnw.nw_stats_batch, tnw.nw_stats_batch),
+                   (jnw.nw_forward_batch, tnw.nw_forward_batch)):
+        want = jf(*j, IGAP, EGAP, max_len=L)
+        got = tf(*t, IGAP, EGAP, max_len=L)
+        for f in want._fields:
+            _eq(getattr(got, f), getattr(want, f), f)
+
+
 def test_kernel_wrappers_take_plain_path_on_cpu():
     L = 128
     t = [torch.as_tensor(a) for a in _mixed_pairs(np.random.default_rng(4), 8, L)]
@@ -108,7 +171,7 @@ def _packed_rows(rng, n, L):
     return words, lens
 
 
-@pytest.mark.parametrize("L,B", [(128, 6), (256, 8)])
+@pytest.mark.parametrize("L,B", [(128, 6), (256, 8), (512, 6)])
 def test_resolve_rows_match_jax(L, B):
     """Row gather + unpack + stats / forward + traceback, with a batch
     that is not a multiple of the kernels' tile (padded, then sliced)."""

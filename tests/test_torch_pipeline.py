@@ -24,8 +24,12 @@ from imsame_tpu_torch import cli as tcli
 from imsame_tpu_torch.config import Config as TConfig
 from imsame_tpu_torch.index.kmer import index_from_arrays, load_index
 from imsame_tpu_torch.io.fasta import read_fasta as tread_fasta
-from imsame_tpu_torch.pipeline import TorchEngine
-from util_synth import make_pair, write_fasta
+from imsame_tpu_torch.pipeline import (
+    GATE_MAX_ELEMENTS, SHORT_WINDOW, TorchEngine, gate_chunk_sizes,
+)
+from imsame_tpu_torch.constants import MAX_READ_SIZE
+from test_longreads import _make_long_pair
+from util_synth import make_pair, random_read, write_fasta
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -204,11 +208,78 @@ def test_cli_help_and_flags():
     assert cfg.igap == -3 and cfg.egap == -1
 
 
-def test_long_reads_raise_not_implemented(tmp_path):
-    qp, dp = make_pair(tmp_path, random.Random(3), n_query=4, n_db=4,
-                       read_len=300)
-    with pytest.raises(NotImplementedError, match="long-read"):
-        TorchEngine(tread_fasta(str(dp)), device="cpu")
+def test_engine_matches_jax_long_reads(tmp_path):
+    """Reads of 300..3000 bp, the exact 3000 bp cap included: length
+    buckets 512, 2048 and 3072, the gate's small-window tier at a 3072
+    window, and render chunks of 8 pairs (tests/test_longreads.py's
+    config: stats batches of 8, a 64 MiB render budget)."""
+    qp, dp = _make_long_pair(tmp_path, random.Random(77))
+    j, t = _run_both(qp, dp, {"nw_stats_batches": (8,),
+                              "nw_render_bp_budget": 64 << 20})
+    assert t[2].accepted >= 3
+    assert max(t[1].read_lens()) == MAX_READ_SIZE
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("extra", [40, 100])
+def test_read_above_cap_raises_like_jax(tmp_path, extra):
+    """A read past MAX_READ_SIZE aborts with the reference's error: in the
+    gapped aligner's chunking (3040 bp, still inside the 3072 bucket), or
+    at engine construction for a db read past the largest bucket (3100
+    bp)."""
+    base = random_read(random.Random(5), MAX_READ_SIZE + extra)
+    write_fasta(tmp_path / "q.fa", [base], "q")
+    write_fasta(tmp_path / "db.fa", [base], "d")
+    qp, dp = str(tmp_path / "q.fa"), str(tmp_path / "db.fa")
+    for run in (
+        lambda: TpuEngine(jread_fasta(dp), JConfig(mesh_shape=None))
+        .compare(jread_fasta(qp)),
+        lambda: TorchEngine(tread_fasta(dp), device="cpu")
+        .compare(tread_fasta(qp)),
+    ):
+        with pytest.raises(ValueError, match="Read size reached"):
+            run()
+
+
+@pytest.mark.parametrize("budget", [2 << 30, 64 << 20])
+def test_render_ladder_matches_jax(tmp_path, budget):
+    """Per length bucket the render ladder keeps B * 8L^2 under the
+    budget, in multiples of 8 pairs, exactly as the JAX engine's (24 and
+    8 pairs at 3072 under the default 2 GiB)."""
+    qp, dp = make_pair(tmp_path, random.Random(8), n_query=2, n_db=2,
+                       read_len=100)
+    jeng = TpuEngine(jread_fasta(str(dp)),
+                     JConfig(mesh_shape=None, nw_render_bp_budget=budget))
+    teng = TorchEngine(tread_fasta(str(dp)),
+                       TConfig(nw_render_bp_budget=budget), device="cpu")
+    for L in teng.cfg.length_buckets:
+        sizes = teng._render_sizes(L)
+        assert sizes == jeng._render_sizes(L), L
+        assert all(b % 8 == 0 for b in sizes)
+        assert sizes[0] * 8 * L * L <= max(budget, 8 * 8 * L * L), (L, sizes)
+        assert list(sizes) == sorted(sizes, reverse=True)
+    if budget == 2 << 30:
+        assert teng._render_sizes(3072) == (24, 8)
+        assert teng._render_sizes(2048) == (64, 8)
+
+
+@pytest.mark.parametrize("window", [64, 128, 256, 512, 3072])
+def test_gate_chunk_sizes(window):
+    """Up to the 256 window the gate chunks are the configured ones, as in
+    the JAX engine; past it the largest chunk keeps chunk x window under
+    GATE_MAX_ELEMENTS, in multiples of 32."""
+    chunks = TConfig().gate_chunks
+    assert chunks == JConfig().gate_chunks
+    sizes = gate_chunk_sizes(chunks, window)
+    assert sizes == sorted(sizes, reverse=True)
+    assert all(z % 32 == 0 for z in sizes)
+    if window <= SHORT_WINDOW:
+        assert sizes == sorted(chunks, reverse=True)
+    else:
+        assert sizes[0] * window <= GATE_MAX_ELEMENTS
+        assert sizes[0] + 32 > GATE_MAX_ELEMENTS // window
+    if window == 3072:
+        assert sizes == [87_360, 1 << 16]
 
 
 def test_port_imports_without_jax(tmp_path):
