@@ -1,34 +1,41 @@
 """Smoke test of the PyTorch/CUDA port (imsame_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                      # the smoke test
+    python3 chip_smoke.py --ab PARENT [DIR]    # kernel A/B, see phase_ab
 
 Phases, in order; any failure raises and exits non-zero:
 
   1. device  -- requires torch.cuda; prints the card's name and power limit
-                (nvidia-smi) and the torch / CUDA versions.
+                (nvidia-smi), its SMs and max SM clock, and the torch /
+                CUDA versions.
   2. build   -- compiles the native host runtime (gcc) and both NW kernels
                 (nvcc, sm_90a, one process per source) from this checkout;
                 prints each build's seconds and the ptxas register report.
   3. kernels -- nw_stats and nw_forward against their plain torch versions
-                on the same CUDA tensors; every output must be exactly
-                equal (integer DP).  Pairs with empty and 1-base reads, and
-                pairs longer than the bucket (a batch's padding pairs
-                repeat read 0, which may be), at L = 128 and 256 and
-                appended to every long bucket's batch; the short path's
-                shapes at L = 256 (mixed pairs, lengths 2..256); every
-                long bucket at the batches the
-                compare and render paths use (lengths 0.6L..L): nw_stats at
-                B = 256 and, at 512/1024, 2048; nw_forward at the render
-                ladder's top batch (1024, 256, 64, 24); past the card's
-                resident warps (2 x nw_cuda.resident_slots + 8 pairs of
-                0.05L..L: nw_stats at 2048 and 3072, nw_forward at 512),
-                where each warp loops over pairs; and the test shapes
-                of the Pallas functions off the path (tests/test_nw_pallas.py,
-                tests/test_nw_stats.py, tests/test_longreads.py).  Times the
-                kernel and the plain version with CUDA events; past L = 256
-                the plain version runs once per (function, bucket), on the
-                batch and its 8 appended pairs, and the kernel is timed on
-                the batch alone (and on a smaller slice of it).
+                on the same CUDA tensors (kernel_cases); every output must
+                be exactly equal (integer DP).  Pairs with empty and 1-base
+                reads, and pairs longer than the bucket (a batch's padding
+                pairs repeat read 0, which may be), at L = 128 and 256 and
+                appended to every long bucket's batch; tie-heavy pairs
+                (tie_pairs) at 256 and 512; the short path's shapes at
+                L = 256 (mixed pairs, lengths 2..256); every long bucket at
+                the batches the compare and render paths use (lengths
+                0.6L..L): nw_stats at B = 256 and, at 512/1024, 2048;
+                nw_forward at the render ladder's top batch (1024, 256, 64,
+                24); past the card's resident warps (2 x
+                nw_cuda.resident_slots + 8 pairs of 0.05L..L: nw_stats at
+                2048 and 3072, nw_forward at 512), where each warp loops
+                over pairs; the long 20k compare's largest launch (nw_stats
+                at 3072, B = 32,768, held on a slice of 2 x resident slots
+                + 8 pairs); and the test shapes of the Pallas functions off
+                the path (tests/test_nw_pallas.py, tests/test_nw_stats.py,
+                tests/test_longreads.py).  Times the kernel and the plain
+                version with CUDA events and prints real cells/s and the
+                share of the bound (see bound); past L = 256 the plain
+                version runs once per (function, bucket), on the batch and
+                its 8 appended pairs, and the kernel is timed on the batch
+                alone (and on a smaller slice of it).  Prints each
+                kernel's resident slots per bucket.
   4. slice   -- TorchEngine(db, Config(), device="cuda").compare(q) and
                 render_report on the 20k x 20k, 250 bp bench workload
                 (bench.py synth_pair(20000, 250, 0.5, seed=12345)): must
@@ -51,14 +58,23 @@ A long path that launches a kernel past L = 256 on more pairs than the
 card's resident warps fails unless phase 3 held such a batch at that
 bucket.  Each path runs once more on the warm engine, traced by
 torch.profiler: a "profile" line gives that run's device-busy share and
-leading device work.  Each path's kernel launches are counted from 0 just before it and read
-just after.  The last two lines are a JSON object with each kernel's
-launches on those paths, error and times, then {"ok": true, "device": ...}.
+leading device work.  Each path's kernel launches are counted from 0 just
+before it and read just after.  The last two lines are a JSON object with
+each kernel's launches on those paths, error, times and bound, then
+{"ok": true, "device": ...}.
+
+With --ab PARENT [DIR] (PARENT another checkout, e.g. the parent commit
+unpacked by git archive into build/parent) it runs phases 1-2, builds
+the parent's kernels too, prints both libraries' nw_stats SASS sizes,
+and times the two checkouts' kernels in turns on every case of phase 3
+(phase_ab), writing the rows and SASS listings to DIR if given; it runs
+no plain version and no path.
 """
 
 import hashlib
 import json
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,6 +110,15 @@ REF_LONG_ACCEPTED = 256
 L = 256
 LONG = (512, 1024, 2048, 3072)
 IGAP, EGAP = -5, -2
+BIG_B = 32768  # the long 20k compare's largest nw_stats launch (L = 3072)
+# Integer operations one DP cell needs (ops/nw.py nw_stats_batch /
+# nw_forward_batch): 3 candidates (3 adds), their max with the tie-break
+# pick (2), the cell (1), the match terms (2), the path stats or from-word
+# of the three moves and their select (5), the row tracker (compare, 2
+# adds, 3 selects: 6) and the column tracker (6).
+OPS_PER_CELL = 25
+HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
+CARD = {}  # "sms", "sm_hz" of the card, read by phase_device
 KERNELS = {
     "nw_stats": (nw_cuda.nw_stats, nw.nw_stats_batch),
     "nw_forward": (nw_cuda.nw_forward, nw.nw_forward_batch),
@@ -246,84 +271,180 @@ def phase_device() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    CARD["sm_hz"] = float(clk) * 1e6
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
     print(smi)
     print(
         f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
-        f"count {torch.cuda.device_count()}"
+        f"count {torch.cuda.device_count()}, {CARD['sms']} SMs, "
+        f"max SM clock {clk} MHz"
     )
     return smi
 
 
-def phase_build() -> None:
+def phase_build(csrc: str | None = None) -> None:
     t0 = time.perf_counter()
     native.build()
     if native.load() is None:
         raise RuntimeError("native host library did not load")
     print(f"build host.c (gcc): {time.perf_counter() - t0:.2f} s")
-    info = nw_cuda.build()
-    print(f"build nw kernels (nvcc sm_90a): {info['seconds']:.2f} s")
+    info = nw_cuda.build(*([csrc] if csrc else []))
+    print(f"build nw kernels (nvcc sm_90a){' of ' + csrc if csrc else ''}: "
+          f"{info['seconds']:.2f} s")
     print(info["log"].strip())
 
 
-def check_case(cases, name, args, Lb, *, reps=5, timed=None, note=""):
+def real_cells(args, Lb: int) -> int:
+    """DP cells of the pairs inside the bucket: sum of xlen * ylen, each
+    clamped to L."""
+    xl, yl = (a.clamp(max=Lb).long() for a in args[2:4])
+    return int((xl * yl).sum())
+
+
+def bound(name: str, args, Lb: int):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for this call.  Operations: OPS_PER_CELL integer operations per real
+    cell over the card's INT32 lanes (SMs x 64 x max SM clock).  Bytes:
+    each input read once, each output written once, over HBM_BPS."""
+    B = args[0].shape[0]
+    ops_ms = real_cells(args, Lb) * OPS_PER_CELL / (
+        CARD["sms"] * 64 * CARD["sm_hz"]) * 1e3
+    out = 20 * B if name == "nw_stats" else B * ((2 * Lb - 1) * Lb * 4 + 12)
+    bytes_ms = (2 * B * Lb + 8 * B + out) / HBM_BPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_case(cases, name, args, Lb, *, reps=5, timed=None, note="",
+               plain_B=None):
     """Hold kernel `name` against its plain version on args (bucket Lb):
-    one plain call, timed; the kernel on the whole batch, then on its
-    first B pairs for each B in `timed` (default: the whole batch), each
-    against the same plain result and timed."""
+    one plain call on the first plain_B pairs (default: all), timed; the
+    kernel on the whole batch, then on its first B pairs for each B in
+    `timed` (default: the whole batch), each against the same plain result
+    and timed."""
     wrapped, plain = KERNELS[name]
-    want, plain_ms = timed_once(lambda: plain(*args, IGAP, EGAP, max_len=Lb))
     n = args[0].shape[0]
+    pb = plain_B or n
+    want, plain_ms = timed_once(
+        lambda: plain(*[a[:pb] for a in args], IGAP, EGAP, max_len=Lb))
     timed = sorted(set(timed or (n,)), reverse=True)
-    err = max_abs_err(wrapped(*args, IGAP, EGAP, max_len=Lb), want)
+    err = max_abs_err([g[:pb] for g in wrapped(*args, IGAP, EGAP, max_len=Lb)],
+                      want)
     for b in timed:
         part = [a[:b] for a in args]
         got = wrapped(*part, IGAP, EGAP, max_len=Lb)
         torch.cuda.synchronize()
-        err = max(err, max_abs_err(got, [w[:b] for w in want]))
+        k = min(b, pb)
+        err = max(err, max_abs_err([g[:k] for g in got],
+                                   [w[:k] for w in want]))
         del got
         ms = cuda_ms(lambda: wrapped(*part, IGAP, EGAP, max_len=Lb), reps)
         top = b == timed[0]
+        b_ms, b_by = bound(name, part, Lb)
+        cells = real_cells(part, Lb)
         cases.append(dict(kernel=name, L=Lb, B=b, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms if top else None, plain_B=n,
+                          plain_ms=plain_ms if top else None, plain_B=pb,
+                          bound_ms=b_ms, bound_by=b_by, cells=cells,
                           note=note))
         print(f"{name:10s} L={Lb} B={b}{note}: equal, kernel {ms:.3f} ms"
-              + (f", plain {plain_ms:.3f} ms (B={n})" if top else ""))
+              + (f", plain {plain_ms:.3f} ms (B={pb})" if top else "")
+              + f", {cells / ms / 1e6:.2f} G real cells/s, bound {b_ms:.3f}"
+              f" ms ({b_by}) = {100 * b_ms / ms:.1f} %")
     del want
 
 
-def phase_kernels() -> list:
-    """Each kernel against its plain version, bit for bit."""
-    rng = np.random.default_rng(20260)
-    cases = []
+TIE_KINDS = ("identical", "homopolymer", "period2", "mismatch", "prefix")
+
+
+def tie_pairs(kind: str, L: int):
+    """4 tie-heavy pairs of one kind at bucket L (numpy X, Y, xlen,
+    ylen), where the best cell's (score, i, j) tie-break decides: two
+    length pairs, then the same pairs with the reads swapped.  Kinds:
+    identical reads, homopolymer against homopolymer, period-2 repeats (in
+    phase, then shifted by one), all mismatches, one read a prefix of the
+    other."""
+    rng = np.random.default_rng(L)
+    X = np.zeros((2, L), np.uint8)
+    Y = np.zeros((2, L), np.uint8)
+    xlen, ylen = (L, L // 2), (L // 2 + 1, L)
+    if kind == "identical":
+        X[:] = Y[:] = rng.integers(0, 4, L)
+        xlen, ylen = (L - 3, L - 3), (L, L)
+    elif kind == "period2":
+        X[:, 1::2] = 1
+        Y[0], Y[1, 0::2] = X[0], 1
+        xlen, ylen = (L - 3, L // 2), (L, L - 2)
+    elif kind == "mismatch":
+        Y[:] = 2
+    elif kind == "prefix":
+        X[:] = Y[:] = rng.integers(0, 4, L)
+        xlen, ylen = (L, L // 3), (L // 3, L)
+    elif kind != "homopolymer":  # homopolymer: zeros on both sides
+        raise ValueError(kind)
+    xl = np.array(xlen + ylen, np.int32)
+    yl = np.array(ylen + xlen, np.int32)
+    return np.concatenate([X, Y]), np.concatenate([Y, X]), xl, yl
+
+
+def big_pairs(rng, B: int, L: int):
+    """The long 20k compare's largest launch at 3072: per pair one read of
+    2049..3000 bp and the other of 300..3000 bp, in random order; half the
+    pairs are near-copies (4 % substitutions, 1 % indels, as long_pair_np)."""
+    X = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    Y = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    xlen = rng.integers(2049, 3001, B).astype(np.int32)
+    ylen = rng.integers(300, 3001, B).astype(np.int32)
+    for b in range(0, B, 2):  # every other pair a near-copy
+        y = mutate_np(rng, X[b, :xlen[b]], 0.04, 0.01)
+        Y[b, :len(y)] = y
+        ylen[b] = len(y)
+    swap = rng.random(B) < 0.5
+    X[swap], Y[swap] = Y[swap].copy(), X[swap].copy()
+    xlen[swap], ylen[swap] = ylen[swap].copy(), xlen[swap].copy()
+    return to_cuda(X, Y, xlen, ylen)
+
+
+def kernel_cases(rng):
+    """Every kernel case, in order: (name, args, L, options of
+    check_case).  A generator, so one case's tensors are alive at a time."""
     # degenerate pairs: an empty read can be read 0 of a sample, and read 0
     # fills the padding pairs of every NW batch
     X, Y, xlen, ylen = mixed_pairs(rng, 4)
     xlen[:] = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
     ylen[:] = torch.tensor([0, 7, 1, L], dtype=torch.int32)
     for name in KERNELS:
-        check_case(cases, name, (X, Y, xlen, ylen), L, reps=3,
-                   note=" [lengths 0, 1]")
+        yield name, (X, Y, xlen, ylen), L, dict(reps=3, note=" [lengths 0, 1]")
     for Lb in (128, L):
         X, Y, xlen, ylen = mixed_pairs(rng, 8, Lb)
         for t, v in zip((xlen, ylen), degenerate_lengths(Lb)):
             t[:] = torch.tensor(v, dtype=torch.int32)
         for name in KERNELS:
-            check_case(cases, name, (X, Y, xlen, ylen), Lb, reps=3,
-                       note=" [empty, over-long]")
+            yield name, (X, Y, xlen, ylen), Lb, dict(
+                reps=3, note=" [empty, over-long]")
+    # tie-heavy pairs, where the best cell's tie-break decides
+    for Lb in (L, 512):
+        ties = [np.concatenate(a) for a in
+                zip(*(tie_pairs(kind, Lb) for kind in TIE_KINDS))]
+        for name in KERNELS:
+            yield name, to_cuda(*ties), Lb, dict(reps=3, note=" [ties]")
     # the short path's shapes (as measured since the 256-bucket port)
     for name, B in (("nw_stats", 256), ("nw_stats", 2048),
                     ("nw_stats", 32768), ("nw_forward", 256),
                     ("nw_forward", 2048)):
-        check_case(cases, name, mixed_pairs(rng, B), L, reps=10)
+        yield name, mixed_pairs(rng, B), L, dict(reps=10)
     # the long buckets at the compare (stats) and render (forward) batches
     for Lb in LONG:
         B = 2048 if Lb <= 1024 else 256
-        check_case(cases, "nw_stats", long_pairs(rng, B + 8, Lb, True), Lb,
-                   timed=(B, 256))
+        yield "nw_stats", long_pairs(rng, B + 8, Lb, True), Lb, dict(
+            timed=(B, 256))
     for Lb, B in zip(LONG, (1024, 256, 64, 24)):
-        check_case(cases, "nw_forward", long_pairs(rng, B + 8, Lb, True),
-                   Lb, timed=(B,))
+        yield "nw_forward", long_pairs(rng, B + 8, Lb, True), Lb, dict(
+            timed=(B,))
     # past the card's resident warps, where each warp loops over pairs and
     # reuses its strip scratch (the long compare's stats batches at 2048
     # and 3072 hold thousands of pairs); lengths from 0.05L so that short
@@ -331,8 +452,14 @@ def phase_kernels() -> list:
     for name, Lb in (("nw_stats", 2048), ("nw_stats", 3072),
                      ("nw_forward", 512)):
         B = 2 * nw_cuda.resident_slots(name, Lb) + 8
-        check_case(cases, name, long_pairs(rng, B + 8, Lb, True, 0.05), Lb,
-                   reps=2, timed=(B,), note=" [> resident warps]")
+        yield name, long_pairs(rng, B + 8, Lb, True, 0.05), Lb, dict(
+            reps=2, timed=(B,), note=" [> resident warps]")
+    # the long 20k compare's largest launch, held on a slice of 2 x
+    # resident warps + 8 pairs
+    B = BIG_B
+    yield "nw_stats", big_pairs(rng, B, 3072), 3072, dict(
+        reps=2, plain_B=2 * nw_cuda.resident_slots("nw_stats", 3072) + 8,
+        note=" [long 20k launch]")
     # test shapes of the Pallas functions no path here takes as such
     for name, Lb, B, make, note in (
         ("nw_forward", 128, 8, mixed_pairs, " [nw_forward_batch_pallas]"),
@@ -345,8 +472,104 @@ def phase_kernels() -> list:
         ("nw_stats", 512, 8, long_pairs, " [nw_stats_batch_pallas]"),
         ("nw_stats", 1024, 8, long_pairs, " [nw_stats_batch_pallas]"),
     ):
-        check_case(cases, name, make(rng, B, Lb), Lb, reps=3, note=note)
+        yield name, make(rng, B, Lb), Lb, dict(reps=3, note=note)
+
+
+def phase_kernels() -> list:
+    """Each kernel against its plain version, bit for bit."""
+    cases = []
+    for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
+        check_case(cases, name, args, Lb, **opts)
+    for Lb in (128, L) + LONG:
+        print(f"resident_slots nw_stats L={Lb}: "
+              f"{nw_cuda.resident_slots('nw_stats', Lb)}, nw_forward: "
+              f"{nw_cuda.resident_slots('nw_forward', Lb)}")
     return cases
+
+
+def sass_loops(so: str, tag: str, out_dir: str | None) -> None:
+    """Per nw_stats instantiation of the library `so`: its SASS
+    instruction count (cuobjdump -sass) and its cells loop: the smallest
+    loop (a backward branch's span) with at least 9 shuffles and no warp
+    collective (those are the pair's epilogue), printed with its static
+    instruction and shuffle counts; its cold blocks (best-cell offers,
+    boundary ring) are included.  With `out_dir` the whole listing goes
+    to out_dir/sass_<tag>.txt."""
+    tool = str(Path(nw_cuda._nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                         timeout=300).stdout
+    if out_dir:
+        Path(out_dir, f"sass_{tag}.txt").write_text(out)
+    for part in out.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "nw_stats" not in name:
+            continue
+        ins = [(int(a, 16), t) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;\n]*);", part)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        best = None
+        for i, (a, t) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+            if not m or int(m[1], 16) >= a or int(m[1], 16) not in at:
+                continue
+            body = [x for _, x in ins[at[int(m[1], 16)]:i + 1]]
+            shfl = sum("SHFL" in x for x in body)
+            if shfl >= 9 and not any("ENDCOLLECTIVE" in x for x in body) \
+                    and (best is None or len(body) < best[0]):
+                best = (len(body), shfl)
+        kn = re.search(r"kernelILi(\d+)ELi(\d+)E", name)
+        print(f"sass {tag} nw_stats K={kn[1]} NS={kn[2]}: {len(ins)} "
+              f"instructions; cells loop {best[0]} instructions, "
+              f"{best[1]} shuffles")
+
+
+def phase_ab(parent: str, out_dir: str | None = None) -> None:
+    """Times the kernels of another checkout (`parent`, e.g. the parent
+    commit unpacked with git archive) and of this one on the same inputs,
+    in turns (parent, this, this, parent), on every kernel case; this
+    checkout's outputs must equal the parent's bit for bit.  Prints one
+    line per case; runs no plain version.  With `out_dir` it also writes
+    the rows (out_dir/ab_kernels.json) and both SASS listings there."""
+    pc = str(Path(parent).resolve() / "imsame_tpu_torch" / "csrc")
+    if out_dir:
+        Path(out_dir).mkdir(parents=True, exist_ok=True)
+    phase_build(pc)
+    for who, src in (("parent", pc), ("new", None)):
+        print(f"{who}:")
+        sass_loops(nw_cuda.build(*([src] if src else []))["path"], who,
+                   out_dir)
+    rows = []
+    for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
+        runs = {
+            "parent": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
+                                             max_len=Lb, csrc=pc),
+            "new": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
+                                          max_len=Lb),
+        }
+        err = max_abs_err(runs["new"](), runs["parent"]())
+        reps = opts.get("reps", 5)
+        t = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            t[who].append(cuda_ms(runs[who], reps))
+        pm, nm = (sum(t[w]) / 2 for w in ("parent", "new"))
+        cells = real_cells(args, Lb)
+        b_ms, b_by = bound(name, args, Lb)
+        rows.append(dict(kernel=name, L=Lb, B=args[0].shape[0],
+                         note=opts.get("note", ""), parent_ms=t["parent"],
+                         new_ms=t["new"], max_abs_err=err, cells=cells,
+                         bound_ms=b_ms, bound_by=b_by))
+        print(f"ab {name:10s} L={Lb} B={args[0].shape[0]}"
+              f"{opts.get('note', '')}: equal to parent; parent "
+              f"{pm:.3f} ms, new {nm:.3f} ms, new/parent {nm / pm:.3f}; "
+              f"{cells / pm / 1e6:.2f} -> {cells / nm / 1e6:.2f} G cells/s;"
+              f" bound {b_ms:.3f} ms ({b_by})")
+        del args
+    for Lb in (128, L) + LONG:
+        print(f"resident_slots nw_stats L={Lb}: parent "
+              f"{nw_cuda.resident_slots('nw_stats', Lb, pc)}, new "
+              f"{nw_cuda.resident_slots('nw_stats', Lb)}")
+    if out_dir:
+        Path(out_dir, "ab_kernels.json").write_text(json.dumps(rows, indent=1))
 
 
 def warm(label: str, fn):
@@ -592,16 +815,21 @@ def phase_long20k(cases: list) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv) -> int:
     smi = phase_device()
     phase_build()
+    if argv[:1] == ["--ab"]:  # python3 chip_smoke.py --ab PARENT [OUT_DIR]
+        phase_ab(*argv[1:3])
+        return 0
     cases = phase_kernels()
     paths = [phase_slice(), phase_long(cases), phase_long20k(cases)]
     print(smi)
     kernels = []
     for name, lines in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]
-        top = max((c for c in mine if c["plain_ms"] is not None),
+        # the largest case whose plain call ran on the same batch
+        top = max((c for c in mine
+                   if c["plain_ms"] is not None and c["plain_B"] >= c["B"]),
                   key=lambda c: (c["L"], c["B"]))
         kernels.append({
             "name": name, "route": "cuda",
@@ -611,6 +839,9 @@ def main() -> int:
             "launches": sum(p[name] for p in paths),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            # no PyTorch call computes S or F
+            "library_ms": None,
             "L": top["L"], "B": top["B"], "plain_B": top["plain_B"],
         })
     print(json.dumps({"kernels": kernels}))
@@ -622,4 +853,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

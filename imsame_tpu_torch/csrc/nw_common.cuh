@@ -1,9 +1,9 @@
 // nw_common.cuh: what the two NW kernels, nw_stats.cu (function S) and
 // nw_forward.cu (function F), share: constants, the length buckets, the
-// strip-boundary hand-off between strips of one pair, the row shift of the
-// wavefront, the best-cell fold and the launch geometry.  nw_stats.cu
-// describes the design (warp per pair, K rows per lane, strips of 32*K
-// rows past L = 256, a per-warp boundary in global memory).
+// strip bounds, the row shift of the wavefront, the query-row load and
+// the launch geometry.  nw_stats.cu describes the design (warp per pair,
+// K rows per lane, strips of 32*K rows past L = 256, a per-warp boundary
+// in global memory).
 
 #pragma once
 
@@ -23,35 +23,6 @@ constexpr int kWarpsPerBlock = 4;  // pairs per block: the batch tile
   F(128, 4, 1) F(256, 8, 1) F(512, 8, 2) F(1024, 8, 4) F(2048, 8, 8) \
   F(3072, 8, 12)
 
-// Strip boundary of one warp slot, [2, 2L] int4 in global memory:
-//   sw[c] = {T, v} of the strip's last row and {T, v} of the row above it
-//           at column c (v: the kernel's per-cell state, path stats or run),
-//   mc[c] = the column gap tracker of column c as it leaves the last row.
-// Columns past the query read hold NEG / 0.
-__device__ __forceinline__ int4 load_sw(const int4* sw, int c, int yl) {
-  return c < yl ? __ldcg(sw + c) : make_int4(kNeg, 0, kNeg, 0);
-}
-__device__ __forceinline__ int4 load_mc(const int4* mc, int c, int yl) {
-  return c <= yl - 2 ? __ldcg(mc + c) : make_int4(kNeg, 0, 0, 0);
-}
-
-// Lane 31 hands the strip below its boundary on diagonal d of the strip
-// whose last row is r_last: `last` is that row's cell (column d - r_last),
-// `above` the row above's (column d - r_last + 1), `mc` the column tracker
-// leaving the last row (column d - r_last - 1).  The strip reads its own
-// top boundary from the same buffer at columns d - r0 and d - r0 + 1, at
-// least H - 2 columns ahead of these writes, so no column is overwritten
-// before it is read.
-__device__ __forceinline__ void hand_off(int4* sw, int4* mc, int d,
-                                         int r_last, int yl, int2 last,
-                                         int2 above, int4 mc_out) {
-  const int c1 = d - r_last;
-  if (c1 >= 0 && c1 < yl) __stcg(reinterpret_cast<int2*>(sw + c1), last);
-  if (c1 + 1 >= 0 && c1 + 1 < yl)
-    __stcg(reinterpret_cast<int2*>(sw + c1 + 1) + 1, above);
-  if (c1 - 1 >= 0 && c1 - 1 <= yl - 2) __stcg(mc + c1 - 1, mc_out);
-}
-
 // One past the last diagonal on which strip rows r0 .. r0+H-1 hold a valid
 // cell, at least r0 (a strip of an empty read has none).  A pair sweeps at
 // most the bucket's nd = 2L-1 diagonals, even when its lengths exceed L: a
@@ -70,23 +41,6 @@ __device__ __forceinline__ void shift_down(int (&v)[K], int lane, int top) {
 #pragma unroll
   for (int k = K - 1; k > 0; --k) v[k] = v[k - 1];
   v[0] = lane ? up : top;
-}
-
-// Folds diagonal d's best last-row / last-column candidate (score << 13 |
-// i, a lex-max) into the running best (bs, bi, bj).  Warp-uniform; true
-// when the diagonal's best became the running best.  Order-free, so it
-// folds across strips as within one (ops/nw.py _best_fold).
-__device__ __forceinline__ bool fold_best(bool has_elig, int best_packed,
-                                          int d, int& bs, int& bi, int& bj) {
-  if (!__any_sync(kFull, has_elig)) return false;
-  const int dbest = __reduce_max_sync(kFull, best_packed);
-  const int ds = dbest >> 13;  // floor(dbest / 8192)
-  const int di = dbest & 8191;
-  if (ds < bs || (ds == bs && di < bi)) return false;
-  bs = ds;
-  bi = di;
-  bj = d - di;
-  return true;
 }
 
 // Copies a pair's query row into the warp's shared row.

@@ -30,10 +30,11 @@
 // nw_stats.cu: a strip sweeps only its valid diagonals and takes its top
 // boundary (scores of the two rows above, run state of the row above, the
 // column tracker {mc_s, mc_x, -, -}) from a per-warp boundary in global
-// memory, and a pair sweeps at most the bucket's 2L-1 diagonals whatever
-// its lengths (see nw_stats.cu for both; the strip machinery is
-// nw_common.cuh).  Every word is written exactly once: a strip fills the
-// diagonals before and after its sweep with -1, and a strip with no valid
+// memory, which lane 0 reads one diagonal ahead and lane 31 writes, and a
+// pair sweeps at most the bucket's 2L-1 diagonals whatever its lengths
+// (see nw_stats.cu).  Every word is written exactly once: a strip fills
+// the diagonals before and after its sweep with -1, and a strip with no
+// valid
 // row (rows >= xlen) fills all of them, so the tensor needs no
 // initialisation.
 
@@ -45,6 +46,52 @@ using namespace nw;
 
 constexpr int kPack = 4096;
 constexpr int kRunCap = 15;
+
+// Strip boundary of one warp slot, [2, 2L] int4 in global memory:
+//   sw[c] = {T, v} of the strip's last row and {T, v} of the row above it
+//           at column c (v: the run state, run | matches << 4),
+//   mc[c] = the column gap tracker of column c as it leaves the last row.
+// Columns past the query read hold NEG / 0.
+__device__ __forceinline__ int4 load_sw(const int4* sw, int c, int yl) {
+  return c < yl ? __ldcg(sw + c) : make_int4(kNeg, 0, kNeg, 0);
+}
+__device__ __forceinline__ int4 load_mc(const int4* mc, int c, int yl) {
+  return c <= yl - 2 ? __ldcg(mc + c) : make_int4(kNeg, 0, 0, 0);
+}
+
+// Lane 31 hands the strip below its boundary on diagonal d of the strip
+// whose last row is r_last: `last` is that row's cell (column d - r_last),
+// `above` the row above's (column d - r_last + 1), `mc` the column tracker
+// leaving the last row (column d - r_last - 1).  The strip reads its own
+// top boundary from the same buffer at columns d - r0 and d - r0 + 1, at
+// least H - 2 columns ahead of these writes, so no column is overwritten
+// before it is read.
+__device__ __forceinline__ void hand_off(int4* sw, int4* mc, int d,
+                                         int r_last, int yl, int2 last,
+                                         int2 above, int4 mc_out) {
+  const int c1 = d - r_last;
+  if (c1 >= 0 && c1 < yl) __stcg(reinterpret_cast<int2*>(sw + c1), last);
+  if (c1 + 1 >= 0 && c1 + 1 < yl)
+    __stcg(reinterpret_cast<int2*>(sw + c1 + 1) + 1, above);
+  if (c1 - 1 >= 0 && c1 - 1 <= yl - 2) __stcg(mc + c1 - 1, mc_out);
+}
+
+// Folds diagonal d's best last-row / last-column candidate (score << 13 |
+// i, a lex-max) into the running best (bs, bi, bj).  Warp-uniform; true
+// when the diagonal's best became the running best.  Order-free, so it
+// folds across strips as within one (ops/nw.py _best_fold).
+__device__ __forceinline__ bool fold_best(bool has_elig, int best_packed,
+                                          int d, int& bs, int& bi, int& bj) {
+  if (!__any_sync(kFull, has_elig)) return false;
+  const int dbest = __reduce_max_sync(kFull, best_packed);
+  const int ds = dbest >> 13;  // floor(dbest / 8192)
+  const int di = dbest & 8191;
+  if (ds < bs || (ds == bs && di < bi)) return false;
+  bs = ds;
+  bi = di;
+  bj = d - di;
+  return true;
+}
 
 template <int K>
 __device__ __forceinline__ void store_row(int* dst, const int (&v)[K]) {

@@ -14,49 +14,63 @@
 // derives the recurrence, the path-stat propagation and the (score, i, j)
 // tie-break.
 //
-// What bounds it on the H100: the DP's dependency chain.  A pair moves 2L
-// bytes of codes in and 20 bytes out, but every anti-diagonal depends on
-// the two before it, so a pair is a chain of serial steps of ~50 integer
-// operations per row.  The kernel is latency-bound, not memory-bound.
+// What bounds it on the H100: integer issue.  A pair moves 2L bytes of
+// codes in and 20 bytes out, but each cell of the DP costs ~25 integer
+// operations (three candidates, the max with its tie-break, the path
+// stats, the row and column gap trackers).  The card's 132 SMs x 64 INT32
+// lanes x 1.98 GHz give ~16.7 T ops/s, ~0.67 T cells/s.  Every
+// anti-diagonal depends on the two before it, so a pair is a serial chain
+// and only many pairs in flight fill the SMs.
 //
 // What the design does about it: one warp per pair, stepping the
 // anti-diagonals.  Lane t owns K contiguous rows of a strip of H = 32*K
 // rows, so the wavefront's row shift is a register move inside a lane plus
-// one __shfl_up_sync of the lane's last row.  The three score diagonals,
-// the packed path stats (len + (id << 16)), the mf/mc gap trackers and the
-// query chars along the diagonal all stay in registers; the query row sits
-// in shared memory.  Independent pairs fill the SM: many warps in flight
-// hide each warp's dependency latency.
+// one __shfl_up_sync of the lane's last row.  Scores, packed path stats
+// (len + (id << 16)) and trackers stay in registers; the query row sits in
+// shared memory and the lane's 8 db and query chars in two packed words
+// each (one __vcmpeq4 compares four cells).  Per cell:
 //
-// Buckets past 256 rows keep the register budget of the 256 bucket (K = 8)
-// by strip-mining: the warp walks the rows in NS = L/256 strips, top to
-// bottom, and each strip sweeps only the diagonals on which it has a valid
-// row (rows >= xlen are never visited).  A strip's top row needs, per
+//  - no predicates.  Cells outside the pair (j < 0, j >= ylen, i >= xlen)
+//    are computed too: no valid cell reads them.  The row tracker needs no
+//    column-0 re-init (its first update, at j = 2, always fires from a
+//    near-NEG state), column 0's tracker carries a +2^30 score so that it
+//    never updates, and rows 0 and 1 see -2^30 above them.  Only the
+//    border cell (j = 0) of the first H diagonals of a strip is a select:
+//    the loop runs a head (rows entering) and a body.
+//  - no multiplies.  The trackers are stored less their coordinate's gap
+//    cost: the row tracker as mf_s - mf_y*egap (and its path stats less
+//    mf_y), the column tracker as mc_s - (mc_x + column)*egap (stats less
+//    mc_x + column), so a gap candidate is one add of a per-diagonal
+//    value; mf_x (always i-1 or i) is gone.  The raw mf_s / mc_s stay for
+//    the trackers' own compares.
+//  - the max of the three candidates with its pick is two __vibmax_s32.
+//  - the diagonal loop is unrolled by 3 so the three score (and stats)
+//    diagonals swap roles instead of being copied.
+//  - each lane keeps its own best (score << 13 | i, j, stats): a row lives
+//    in one lane, so within a lane a later diagonal wins ties on (score, i)
+//    as nw.py _best_fold orders them; one warp fold per pair.
+//  - __launch_bounds__(128, 3): 12 resident warps per SM.
+//
+// Buckets past 256 rows strip-mine (K = 8): the warp walks the rows in
+// NS = L/256 strips, top to bottom, and each strip sweeps only the
+// diagonals on which it has a valid row.  A strip's top row needs, per
 // column c, the scores and path stats of the two rows above it and the
-// column gap tracker (mc) as it leaves the strip above; the strip above
-// writes those 7 ints per column into a per-warp boundary in global memory
-// (L2), and lane 0 reads them one diagonal ahead of use.  The row tracker
-// mf and its column-0 re-init stay inside the strip: a row's mf state only
-// starts on the row's first diagonal.  Reads and writes of one strip never
-// touch the same column at once: on diagonal d the strip reads column
-// d - r0 and writes columns <= d - r0 - H + 2.
+// column tracker as it leaves the strip above.  The strip above writes
+// those 7 ints per column into a per-warp boundary in global memory (L2):
+// lane 31 stores them into a 64-column ring in shared memory and the warp
+// flushes each 32 columns as coalesced stores.  The strip below streams
+// them back with cp.async, 32 columns (one per lane) at a time into a
+// second ring, double-buffered, and lane 0 reads its column from shared
+// memory.  A warp finishes strip s before it reads strip s's boundary,
+// and within a strip reads run >= 200 columns ahead of the flushed writes.
 //
 // Like the plain version, a pair sweeps at most the bucket's 2L-1
 // diagonals, even when its lengths exceed L: a batch's padding pairs
 // repeat read 0, which may be longer than the chunk's bucket.  The
 // boundary has 2L columns, one per diagonal, so such pairs stay in bounds
-// and still equal the plain version.  The strip machinery (boundary loads
-// and hand-off, row shift, best fold, buckets) is nw_common.cuh, shared
-// with nw_forward.cu.
-//
-// The best cell is the lex-max of (score, i, j) over the last row and
-// column, which is order-free, so it folds per diagonal as a warp max of
-// (score << 13 | i) across strips as within one (nw.py _best_fold).  The
-// packings hold at L = 3072: score*8192 + i needs i < 4096 and |score| <=
-// 4*3001 (the diagonal path bounds a cell from below), len + (id << 16)
+// and still equal the plain version.  The packings hold at L = 3072:
+// score*8192 + i needs i < 4096 and |score| <= 4*3001, len + (id << 16)
 // needs len <= 2*3072 < 2^16.  Everything is int32 with NEG = -(2^28).
-// Here the boundary's per-cell state is the path stats w, and the column
-// tracker is {mc_s, mc_x, mc_w, -}.
 
 #include "nw_common.cuh"
 
@@ -64,8 +78,276 @@ namespace {
 
 using namespace nw;
 
+constexpr int kBlocksPerSM = 3;     // resident blocks: 12 warps per SM
+constexpr int kFar = -(1 << 30);    // "row above" of rows 0 and 1
+constexpr int kNoUpdate = 1 << 30;  // column 0's tracker score
+constexpr int kRing = 64;           // boundary ring columns (2 x 32)
+
+// Boundary ring slot: the strip above's {T, v, T', v'} of its last two
+// rows at column c-1 (read ring) or c (write ring), and the column tracker
+// {mc_s, mc_q, mc_wq, -} leaving it at column c.
+struct Slot {
+  int4 sw;
+  int4 mc;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Lane's share of read-ring block `blk`: slot c = 32*blk + lane holds
+// sw[c-1] and mc[c] of the boundary in global memory (defaults past the
+// query read or the 2L columns).
+__device__ __forceinline__ void fetch_block(Slot* ring, const int4* sw,
+                                            const int4* mc, int blk,
+                                            int lane, int yl, int ncol) {
+  const int c = 32 * blk + lane;
+  Slot* s = ring + (c & (kRing - 1));
+  if (c >= 1 && c - 1 < yl && c - 1 < ncol)
+    cp_async16(&s->sw, sw + c - 1);
+  else
+    s->sw = make_int4(kNeg, 0, kNeg, 0);
+  if (c <= yl - 2 && c < ncol)
+    cp_async16(&s->mc, mc + c);
+  else
+    s->mc = make_int4(kNeg, kNeg, 0, 0);
+}
+
+// Lane's share of write-ring block `blk`: column 32*blk + lane to global.
+__device__ __forceinline__ void flush_block(const Slot* ring, int4* sw,
+                                            int4* mc, int blk, int lane,
+                                            int yl, int ncol) {
+  const int c = 32 * blk + lane;
+  const Slot& s = ring[c & (kRing - 1)];
+  if (c < yl && c < ncol) __stcg(sw + c, s.sw);
+  if (c <= yl - 2 && c < ncol) __stcg(mc + c, s.mc);
+}
+
+// Register state of one strip of one pair: the lane's K rows.
+template <int K>
+struct Rows {
+  unsigned xc[K / 4], yd[K / 4];  // db / query chars, byte k = row k
+  int mfs[K], mfm[K], mfw[K];     // row tracker: mf_s, normalised, stats
+  int mcs[K], mcq[K], mcw[K];     // column tracker, aligned to row k
+};
+
+// Per-pair, per-strip constants and the lane's running best.
+struct Ctx {
+  int lane, r0, xl, yl, L, igap, egap;
+  bool top, out;
+  bool row0_lane;  // the lane holds rows 0 and 1 (strip 0, lane 0)
+  bool has_lr;     // the strip holds the last row
+  int bp, bj, bw;
+  Slot* ring;  // read ring (top), then the write ring (out)
+  int4* sw;    // boundary: sw [2L], then mc [2L]
+};
+
+// Before the triple of diagonals that reads read-ring slots lo-1 .. lo+2:
+// wait for the block its last slot enters, and once its first slot has
+// left block b-1, refill that half with block b+1.
+__device__ __forceinline__ void ring_advance(Ctx& c, int lo) {
+  if (!c.top) return;
+  const int hi = lo + 2;
+  if ((hi >> 5) != ((hi - 3) >> 5)) {
+    cp_async_wait_all();
+    __syncwarp();
+  }
+  if (lo - 1 >= 32 && ((lo - 1) >> 5) != ((lo - 4) >> 5)) {
+    __syncwarp();  // lane 0 is done with block b-1
+    fetch_block(c.ring, c.sw, c.sw + 2 * c.L, ((lo - 1) >> 5) + 1, c.lane,
+                c.yl, 2 * c.L);
+    cp_async_commit();
+  }
+}
+
+// Offers cell (i, j) of row k of lane `src` (warp-uniform k) to that
+// lane's best.
+template <int K>
+__device__ __forceinline__ void offer(Ctx& c, const int (&s)[K],
+                                      const int (&w)[K], int k, int src,
+                                      int i, int j) {
+  int v = 0, x = 0;
+  switch (k) {
+#define NW_PICK(n)                  \
+  case n:                           \
+    v = s[n < K ? n : 0];           \
+    x = w[n < K ? n : 0];           \
+    break;
+    NW_PICK(0) NW_PICK(1) NW_PICK(2) NW_PICK(3)
+    NW_PICK(4) NW_PICK(5) NW_PICK(6) NW_PICK(7)
+#undef NW_PICK
+  }
+  const int p = v * 8192 + i;
+  if (c.lane == src && p >= c.bp) {
+    c.bp = p;
+    c.bj = j;
+    c.bw = x;
+  }
+}
+
+// One anti-diagonal d.  s2/w2 hold diagonal d-2, s3/w3 diagonal d-3 and
+// receive diagonal d (cells run k = K-1 .. 0, so s3[k] is free once cell k
+// is done).  HEAD: some row of the strip may sit at column 0.
+template <bool HEAD, int K>
+__device__ __forceinline__ void step(Ctx& c, Rows<K>& r, const uint8_t* ys,
+                                     int (&s2)[K], int (&s3)[K],
+                                     int (&w2)[K], int (&w3)[K], int d) {
+  const int j0 = d - c.r0 - c.lane * K;  // column of the lane's row 0
+  // query char entering the lane's row 0 (clamped like the plain version;
+  // other chars reach only cells no valid cell reads)
+  const unsigned ch = ys[min(max(j0, 0), c.L - 1)];
+#pragma unroll
+  for (int q = K / 4 - 1; q > 0; --q)
+    r.yd[q] = __funnelshift_l(r.yd[q - 1], r.yd[q], 8);
+  r.yd[0] = (r.yd[0] << 8) | ch;
+
+  // rows above the lane's block: the previous lane's, or for lane 0 the
+  // strip boundary (strip 0: kFar)
+  const int up_s2 = __shfl_up_sync(kFull, s2[K - 1], 1);
+  const int up_s3a = __shfl_up_sync(kFull, s3[K - 1], 1);
+  const int up_s3b = __shfl_up_sync(kFull, s3[K - 2], 1);
+  const int up_w2 = __shfl_up_sync(kFull, w2[K - 1], 1);
+  const int up_w3a = __shfl_up_sync(kFull, w3[K - 1], 1);
+  const int up_w3b = __shfl_up_sync(kFull, w3[K - 2], 1);
+  // boundary (strip > 0): sw of column d-r0-1 and mc of column d-r0, and
+  // the previous slot's row r0-1 at column d-r0-2 (NEG on the first)
+  int4 bsw = make_int4(kFar, 0, kFar, 0), bmc = make_int4(0, 0, 0, 0);
+  int pA = kFar, pW = 0;
+  if (c.top) {
+    const int col = d - c.r0;
+    const Slot& sl = c.ring[col & (kRing - 1)];
+    bsw = sl.sw;
+    bmc = sl.mc;
+    const int2 prev =
+        *reinterpret_cast<const int2*>(&c.ring[(col - 1) & (kRing - 1)].sw);
+    pA = col ? prev.x : kNeg;
+    pW = col ? prev.y : 0;
+  }
+  const bool l0 = c.lane == 0;
+  const int a11 = l0 ? bsw.x : up_s2;  // T[i-1][j-1] of row 0
+  const int a12 = l0 ? pA : up_s3a;  // T[i-1][j-2]
+  const int a21 = l0 ? bsw.z : up_s3b; // T[i-2][j-1]
+  const int v11 = l0 ? bsw.y : up_w2;
+  const int v12 = l0 ? pW : up_w3a;
+  const int v21 = l0 ? bsw.w : up_w3b;
+
+  // per-diagonal terms of the normalised candidates
+  const int J = j0 * c.egap;              // j*egap of row 0 (row k: - k*egap)
+  const int Af = c.igap + c.egap - J;     // mf_m of an update: t + Af
+  const int Gf = 2 - j0;                  // mf_w of an update: w + Gf
+  const int Er = (d - 1) * c.egap;        // right candidate: mc_q + Er
+  const int Bc = c.igap - c.egap - (d - 3) * c.egap;  // mc_q of an update
+  const int Hc = 3 - d;                   // mc_w of an update: w + Hc
+  const int dm1 = d - 1;
+
+  unsigned m8[K / 4], m1[K / 4];
+#pragma unroll
+  for (int q = 0; q < K / 4; ++q) {
+    const unsigned m = __vcmpeq4(r.xc[q], r.yd[q]);
+    m8[q] = m & 0x08080808u;
+    m1[q] = m & 0x01010101u;
+  }
+
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k) {
+    const int D = k >= 1 ? s2[k >= 1 ? k - 1 : 0] : a11;
+    const int Wd = k >= 1 ? w2[k >= 1 ? k - 1 : 0] : v11;
+    const int t12 = k >= 1 ? s3[k >= 1 ? k - 1 : 0] : a12;
+    const int w12 = k >= 1 ? w3[k >= 1 ? k - 1 : 0] : v12;
+    const int t21 = k >= 2 ? s3[k >= 2 ? k - 2 : 0] : k == 1 ? a12 : a21;
+    const int w21 = k >= 2 ? w3[k >= 2 ? k - 2 : 0] : k == 1 ? v12 : v21;
+    const int p = k & 3;
+    // 8 or 0, and 0x10000 or 0: this cell's match
+    const int e8 = (int)__byte_perm(m8[k / 4], 0, 0x4440 | p);
+    const int e16 = (int)__byte_perm(m1[k / 4], 0, 0x4044 | (p << 8));
+
+    // row tracker update (before the cell), from T[i][j-2] <= ...
+    if (r.mfs[k] <= s2[k]) {
+      r.mfs[k] = t12;
+      r.mfm[k] = t12 + Af;
+      r.mfw[k] = w12 + Gf;
+    }
+    const int lf = r.mfm[k] + J;
+    const int rt =
+        r.mcq[k] + Er + (k == 1 && c.row0_lane ? kFar : 0);  // row 1
+    bool pl, pd;
+    const int mlr = __vibmax_s32(lf, rt, &pl);  // pl: left >= right
+    const int mx = __vibmax_s32(D, mlr, &pd);   // pd: diagonal wins ties
+    int cell = mx + e8 - 4;
+    int w = pd ? Wd + e16 + 1 : pl ? r.mfw[k] + j0 : r.mcw[k] + dm1;
+    bool border = k == 0 && c.row0_lane;  // row 0
+    if (HEAD) border = border || j0 == k;  // column 0
+    if (border) {
+      cell = e8 - 4;
+      w = 0;
+    }
+    // column tracker update (after the cell), strict >, from two rows up
+    if (t21 > r.mcs[k]) {
+      r.mcs[k] = t21;
+      r.mcq[k] = t21 + Bc;
+      r.mcw[k] = w21 + Hc;
+    }
+    s3[k] = cell;
+    w3[k] = w;
+  }
+
+  // hand the strip below its boundary through the write ring: the last
+  // two rows' cells of this diagonal and the column tracker leaving them
+  if (c.out) {
+    const int c1 = d - (c.r0 + 32 * K - 1);
+    if (c.lane == 31) {
+      Slot* o = c.ring + kRing;
+      *reinterpret_cast<int2*>(&o[c1 & (kRing - 1)].sw.x) =
+          make_int2(s3[K - 1], w3[K - 1]);
+      *reinterpret_cast<int2*>(&o[(c1 + 1) & (kRing - 1)].sw.z) =
+          make_int2(s3[K - 2], w3[K - 2]);
+      o[(c1 - 1) & (kRing - 1)].mc =
+          make_int4(r.mcs[K - 1], r.mcq[K - 1], r.mcw[K - 1], 0);
+    }
+    // column c1 - 1 completes a block of 32: flush it
+    if (c1 >= 32 && ((c1 - 1) & 31) == 31) {
+      __syncwarp();
+      flush_block(c.ring + kRing, c.sw, c.sw + 2 * c.L, (c1 - 1) >> 5,
+                  c.lane, c.yl, 2 * c.L);
+    }
+  }
+
+  // best-cell candidates: the last row and the last column
+  if (c.has_lr) {
+    const int jr = d - (c.xl - 1);
+    const int il = c.xl - 1 - c.r0;
+    if (jr >= 1 && jr < c.yl)
+      offer(c, s3, w3, il & (K - 1), il / K, c.xl - 1, jr);
+  }
+  const int ic = d - c.yl + 1;
+  if (ic >= max(c.r0, 1) && ic < min(c.r0 + 32 * K, c.xl) && c.yl >= 2)
+    offer(c, s3, w3, (ic - c.r0) & (K - 1), (ic - c.r0) / K, ic, c.yl - 1);
+
+  // advance the column tracker to diagonal d+1: shift down; the top row
+  // takes column d - r0: a new column from row 0 in strip 0, else the
+  // boundary's
+  int ns = bmc.x, nq = bmc.y, nw = bmc.z;
+  if (!c.top) {
+    const int v = (d < c.L && c.yl > d) ? s3[0] : kNeg;
+    ns = d == 0 ? kNoUpdate : v;
+    nq = v - d * c.egap + c.igap - c.egap;
+    nw = -d;
+  }
+  shift_down(r.mcs, c.lane, ns);
+  shift_down(r.mcq, c.lane, nq);
+  shift_down(r.mcw, c.lane, nw);
+}
+
 template <int K, int NS>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+__global__ void __launch_bounds__(32 * kWarpsPerBlock, kBlocksPerSM)
 nw_stats_kernel(const uint8_t* __restrict__ X, const uint8_t* __restrict__ Y,
                 const int* __restrict__ xlen, const int* __restrict__ ylen,
                 int B, int igap, int egap, int4* __restrict__ scratch,
@@ -75,198 +357,110 @@ nw_stats_kernel(const uint8_t* __restrict__ X, const uint8_t* __restrict__ Y,
   constexpr int H = 32 * K;  // rows per strip
   constexpr int L = H * NS;
   constexpr int ND = 2 * L - 1;  // diagonals of the bucket
+  constexpr int kHead = (H + 2) / 3 * 3;  // head diagonals, a multiple of 3
+  constexpr int RS = NS > 1 ? kRing : 1;
   __shared__ uint8_t ys_all[kWarpsPerBlock][L];
+  __shared__ Slot rings[kWarpsPerBlock][2 * RS];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int slot = blockIdx.x * kWarpsPerBlock + warp;
   const int n_slots = gridDim.x * kWarpsPerBlock;
   uint8_t* ys = ys_all[warp];
-  int4* sw = NS > 1 ? scratch + (size_t)slot * 4 * L : nullptr;
-  int4* mcb = NS > 1 ? sw + 2 * L : nullptr;
+
+  Ctx c;
+  c.lane = lane;
+  c.L = L;
+  c.igap = igap;
+  c.egap = egap;
+  c.ring = rings[warp];
+  c.sw = NS > 1 ? scratch + (size_t)slot * 4 * L : nullptr;
 
   // each warp slot takes pairs slot, slot + n_slots, ... (the whole warp
   // leaves together)
   for (int b = slot; b < B; b += n_slots) {
     const uint8_t* xrow = X + (size_t)b * L;
-    const uint8_t* yrow = Y + (size_t)b * L;
-    load_row(ys, yrow, lane, L);
-    const int xl = xlen[b];
-    const int yl = ylen[b];
-    const int y0 = ys[0];
-    int bs = kNoBest, bi = 0, bj = 0, bw = 0;
+    load_row(ys, Y + (size_t)b * L, lane, L);
+    c.xl = xlen[b];
+    c.yl = ylen[b];
+    c.bp = kNoBest;
+    c.bj = 0;
+    c.bw = 0;
 
     for (int s = 0; s < NS; ++s) {
       const int r0 = s * H;
-      if (r0 >= xl) break;
-      const bool top = NS > 1 && s > 0;  // rows above come from sw / mcb
+      if (r0 >= c.xl) break;
+      c.r0 = r0;
+      c.top = NS > 1 && s > 0;  // rows above come from the boundary
       // a strip below reads ours
-      const bool out = NS > 1 && s + 1 < NS && r0 + H < xl;
-      const int row0 = r0 + lane * K;
+      c.out = NS > 1 && s + 1 < NS && r0 + H < c.xl;
+      c.row0_lane = s == 0 && lane == 0;
+      c.has_lr = c.xl - 1 >= max(r0, 1) && c.xl - 1 < r0 + H;
       // diagonals with a valid row of this strip (none when yl == 0;
       // empty reads may be read 0 of a sample, and read 0 pads batches)
-      const int dend = strip_end(r0, H, xl, yl, ND);
+      const int dend = strip_end(r0, H, c.xl, c.yl, ND);
 
-      int xc[K], yd[K];
-      int s1[K], s2[K], s3[K], w1[K], w2[K], w3[K];
-      int mf_s[K], mf_x[K], mf_y[K], mf_w[K], mc_s[K], mc_x[K], mc_w[K];
+      Rows<K> r;
+      int sa[K], sb[K], sc[K], wa[K], wb[K], wc[K];
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q) {
+        r.xc[q] = reinterpret_cast<const unsigned*>(xrow + r0 + lane * K)[q];
+        r.yd[q] = 0;
+      }
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        xc[k] = xrow[row0 + k];
-        yd[k] = 0;
-        s1[k] = s2[k] = s3[k] = kNeg;
-        w1[k] = w2[k] = w3[k] = 0;
-        mf_s[k] = kNeg;
-        mf_x[k] = mf_y[k] = mf_w[k] = 0;
-        mc_s[k] = kNeg;
-        mc_x[k] = mc_w[k] = 0;
+        sa[k] = sb[k] = sc[k] = kNeg;
+        wa[k] = wb[k] = wc[k] = 0;
+        r.mfs[k] = r.mfm[k] = kNeg;
+        r.mfw[k] = 0;
+        r.mcs[k] = r.mcq[k] = kNeg;
+        r.mcw[k] = 0;
       }
-      // boundary columns for the next diagonal: sw of column d - r0 - 1,
-      // mc of column d - r0; (pA, pW) is row r0-1 at column d - r0 - 2
-      int4 sw_next = make_int4(kNeg, 0, kNeg, 0);
-      int4 mc_next = top ? load_mc(mcb, 0, yl) : make_int4(kNeg, 0, 0, 0);
-      int pA = kNeg, pW = 0;
-
-      for (int d = r0; d < dend; ++d) {
-        const int4 bsw = sw_next;
-        const int4 bmc = mc_next;
-        if (top) {
-          sw_next = load_sw(sw, d - r0, yl);
-          mc_next = load_mc(mcb, d - r0 + 1, yl);
-        }
-        // query chars along the diagonal: yd[row i] = Y[d - i] (index
-        // clamps at L-1 like the plain version; such chars reach only
-        // invalid cells)
-        shift_down(yd, lane, ys[min(d - r0, L - 1)]);
-        // the two rows just above this lane's block: the previous lane's,
-        // or for lane 0 the strip boundary (NEG / 0 above row 0)
-        const int s2_up = __shfl_up_sync(kFull, s2[K - 1], 1);
-        const int s3_up1 = __shfl_up_sync(kFull, s3[K - 1], 1);
-        const int s3_up2 = __shfl_up_sync(kFull, s3[K - 2], 1);
-        const int w2_up = __shfl_up_sync(kFull, w2[K - 1], 1);
-        const int w3_up1 = __shfl_up_sync(kFull, w3[K - 1], 1);
-        const int w3_up2 = __shfl_up_sync(kFull, w3[K - 2], 1);
-        const int a_im1_jm1 = lane ? s2_up : bsw.x;
-        const int a_im1_jm2 = lane ? s3_up1 : pA;
-        const int a_im2_jm1 = lane ? s3_up2 : bsw.z;
-        const int v_im1_jm1 = lane ? w2_up : bsw.y;
-        const int v_im1_jm2 = lane ? w3_up1 : pW;
-        const int v_im2_jm1 = lane ? w3_up2 : bsw.w;
-        pA = bsw.x;
-        pW = bsw.y;
-
-        int s0[K], w0[K];
-        int best_packed = kNoBest;
-        bool has_elig = false;
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int i = row0 + k;
-          const int j = d - i;
-          const bool valid = j >= 0 && i < xl && j < yl;
-          const bool inner = valid && i >= 1 && j >= 1;
-          const bool eq = xc[k] == yd[k];
-          const int s_pm = eq ? kPoint : -kPoint;
-          const int diag_add = eq ? (1 << 16) + 1 : 1;
-
-          // T[i-1][j-1], T[i-1][j-2], T[i-2][j-1] and their path stats
-          const int t_im1_jm1 = k >= 1 ? s2[k > 0 ? k - 1 : 0] : a_im1_jm1;
-          const int t_im1_jm2 = k >= 1 ? s3[k > 0 ? k - 1 : 0] : a_im1_jm2;
-          const int t_im2_jm1 = k >= 2 ? s3[k > 1 ? k - 2 : 0]
-                                : k == 1 ? a_im1_jm2 : a_im2_jm1;
-          const int w_im1_jm1 = k >= 1 ? w2[k > 0 ? k - 1 : 0] : v_im1_jm1;
-          const int w_im1_jm2 = k >= 1 ? w3[k > 0 ? k - 1 : 0] : v_im1_jm2;
-          const int w_im2_jm1 = k >= 2 ? w3[k > 1 ? k - 2 : 0]
-                                : k == 1 ? v_im1_jm2 : v_im2_jm1;
-
-          // mf update (before the cell), rows with j > 1
-          if (valid && i >= 1 && j >= 2 && mf_s[k] <= s2[k]) {
-            mf_s[k] = t_im1_jm2;
-            mf_x[k] = i - 1;
-            mf_y[k] = j - 2;
-            mf_w[k] = w_im1_jm2;
-          }
-
-          const int score_diag = t_im1_jm1 + s_pm;
-          const int score_left =
-              j >= 2 ? mf_s[k] + igap + (j - (mf_y[k] + 1)) * egap + s_pm
-                     : kNeg;
-          const int score_right =
-              i >= 2 ? mc_s[k] + igap + (i - (mc_x[k] + 1)) * egap + s_pm
-                     : kNeg;
-          const bool pick_diag =
-              score_diag >= score_left && score_diag >= score_right;
-          const bool pick_right = !pick_diag && score_right > score_left;
-          int cell = pick_diag ? score_diag
-                               : (pick_right ? score_right : score_left);
-          const int w_new =
-              pick_diag ? w_im1_jm1 + diag_add
-              : pick_right ? mc_w[k] + max(i - mc_x[k], 1)
-                           : mf_w[k] + max(i - mf_x[k], j - mf_y[k]);
-
-          if (valid && (i == 0 || j == 0)) cell = s_pm;  // border cell
-          s0[k] = valid ? cell : kNeg;
-          w0[k] = inner ? w_new : 0;
-
-          // mc update (after the cell), strict >, from two rows up
-          if (inner && i >= 2 && j >= 2 && t_im2_jm1 > mc_s[k]) {
-            mc_s[k] = t_im2_jm1;
-            mc_x[k] = i - 2;
-            mc_w[k] = w_im2_jm1;
-          }
-          // mf re-init from this diagonal's column-0 cell (d, 0)
-          if (i == d && xl > d) {
-            mf_s[k] = xc[k] == y0 ? kPoint : -kPoint;
-            mf_x[k] = d;
-            mf_y[k] = 0;
-            mf_w[k] = 0;
-          }
-          // best-cell candidates: last row or last column
-          if (inner && (i == xl - 1 || j == yl - 1)) {
-            has_elig = true;
-            best_packed = max(best_packed, s0[k] * 8192 + i);
-          }
-        }
-
-        // hand the strip below its boundary: the last two rows' cells of
-        // this diagonal, and the column tracker leaving the last row
-        if (out && lane == 31)
-          hand_off(sw, mcb, d, r0 + H - 1, yl, make_int2(s0[K - 1], w0[K - 1]),
-                   make_int2(s0[K - 2], w0[K - 2]),
-                   make_int4(mc_s[K - 1], mc_x[K - 1], mc_w[K - 1], 0));
-
-        // advance mc to diagonal d+1: shift down; the top row takes column
-        // d - r0: a new column from row 0 in strip 0, else the boundary's
-        shift_down(mc_s, lane,
-                   top ? bmc.x : (d < L && yl > d) ? s0[0] : kNeg);
-        shift_down(mc_x, lane, top ? bmc.y : 0);
-        shift_down(mc_w, lane, top ? bmc.z : 0);
-
-        // fold this diagonal's best into the running best, with its path
-        // stats from the lane that holds the best row
-        if (fold_best(has_elig, best_packed, d, bs, bi, bj)) {
-          int v = 0;
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-            if (row0 + k == bi) v = w0[k];
-          bw = __shfl_sync(kFull, v, (bi - r0) / K);
-        }
-
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          s3[k] = s2[k];
-          s2[k] = s1[k];
-          s1[k] = s0[k];
-          w3[k] = w2[k];
-          w2[k] = w1[k];
-          w1[k] = w0[k];
-        }
+      if (c.top) {  // the read ring's first two blocks
+        fetch_block(c.ring, c.sw, c.sw + 2 * L, 0, lane, c.yl, 2 * L);
+        fetch_block(c.ring, c.sw, c.sw + 2 * L, 1, lane, c.yl, 2 * L);
+        cp_async_commit();
       }
-      __syncwarp();  // the boundary written by lane 31 is seen by lane 0
+
+      // sa/sb/sc (and wa/wb/wc) rotate: on diagonal d of a triple they
+      // hold d-1, d-2, d-3 in turn
+      int d = r0;
+      const int dh = min(r0 + kHead, dend);
+      for (; d < dh; d += 3) {
+        ring_advance(c, d - r0);
+        step<true>(c, r, ys, sb, sc, wb, wc, d);
+        if (d + 1 < dh) step<true>(c, r, ys, sa, sb, wa, wb, d + 1);
+        if (d + 2 < dh) step<true>(c, r, ys, sc, sa, wc, wa, d + 2);
+      }
+      for (; d < dend; d += 3) {
+        ring_advance(c, d - r0);
+        step<false>(c, r, ys, sb, sc, wb, wc, d);
+        if (d + 1 < dend) step<false>(c, r, ys, sa, sb, wa, wb, d + 1);
+        if (d + 2 < dend) step<false>(c, r, ys, sc, sa, wc, wa, d + 2);
+      }
+      if (c.top) cp_async_wait_all();
+      if (c.out) {
+        // the write ring's last blocks: columns < nc have their tracker,
+        // blocks below nc / 32 are flushed
+        __syncwarp();
+        const int nc = max(dend - (r0 + H - 1) - 1, 0);
+        for (int blk = nc >> 5; blk <= (nc >> 5) + 1; ++blk)
+          flush_block(c.ring + kRing, c.sw, c.sw + 2 * L, blk, lane, c.yl,
+                      2 * L);
+      }
+      __syncwarp();  // the boundary written by all lanes is seen by all
     }
 
+    // one fold of the lanes' bests: the lex-max of (score, i) picks one
+    // lane (a row lives in one lane), which holds j and the path stats
+    const int best = __reduce_max_sync(kFull, c.bp);
+    const int src = __ffs(__ballot_sync(kFull, c.bp == best)) - 1;
+    const int bj = __shfl_sync(kFull, c.bj, src);
+    const int bw = __shfl_sync(kFull, c.bw, src);
     if (lane == 0) {
-      out_score[b] = bs;
-      out_i[b] = bi;
-      out_j[b] = bj;
+      const bool none = best == kNoBest;
+      out_score[b] = none ? kNoBest : best >> 13;  // floor(best / 8192)
+      out_i[b] = none ? 0 : best & 8191;
+      out_j[b] = none ? 0 : bj;
       out_len[b] = bw & 0xFFFF;
       out_id[b] = bw >> 16;
     }

@@ -14,18 +14,21 @@ module import.
 
 Each wrapper takes the plain torch version's arguments.  A CPU tensor
 goes to the plain version in ops/nw.py; a CUDA tensor launches the kernel
-on the current stream, or raises: there is no fallback.  The wrapper
-validates device, dtype, shape and contiguity, allocates its outputs (and,
-past L = 256, the kernel's strip-boundary scratch) with ``torch.empty``,
-raises if the launcher returns a CUDA error, and adds one to its
-``launches`` attribute per kernel launch.
+on the current stream, or raises: there is no fallback.  ``launch``
+validates device, dtype, shape and contiguity, allocates the outputs (and,
+past L = 256, the kernel's strip-boundary scratch) with ``torch.empty``
+and raises if the launcher returns a CUDA error; each wrapper adds one to
+its ``launches`` attribute per kernel launch.  ``launch`` also takes
+another checkout's ``csrc`` directory, so chip_smoke.py can time two
+versions of a kernel side by side.
 
 Both kernels are instantiated for every length bucket of
 ``Config.length_buckets``.  Up to L = 256 a launch has one warp per pair.
 Past it each warp walks its pair's rows in strips of 256 and hands each
 strip's bottom boundary to the next through a scratch of 2 x 2L x 16
 bytes per warp, so a launch holds at most as many warps as fit on the
-card at once (``*_slots``), and each warp loops over pairs.
+card at once (``resident_slots``: 12 per SM for ``nw_stats``, 8 for
+``nw_forward``), and each warp loops over pairs.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ def _nvcc() -> str:
 
 def _run(cmds: list, timeout: int) -> str:
     """Run the commands at once; returns their joined output, raises
-    CalledProcessError for the first that failed."""
+    RuntimeError with the output of the first that failed."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
@@ -80,18 +83,19 @@ def _run(cmds: list, timeout: int) -> str:
                 p.wait()
     for c, p, out in zip(cmds, procs, outs):
         if p.returncode:
-            raise subprocess.CalledProcessError(p.returncode, c, out)
+            raise RuntimeError(f"{' '.join(c)} failed ({p.returncode}):\n"
+                               + out[-8000:])
     return "".join(outs)
 
 
-def build() -> dict:
-    """Compile both kernels unless a library for the current sources
-    exists.  Returns {"path", "seconds", "log"} (log: ptxas register and
-    spill report of a fresh build).  Raises CalledProcessError on a
-    failed build."""
-    srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
+def build(csrc: str = _CSRC) -> dict:
+    """Compile both kernels of the sources in `csrc` (default: this
+    package's) unless a library for them exists.  Returns {"path",
+    "seconds", "log"} (log: ptxas register and spill report of a fresh
+    build).  Raises RuntimeError on a failed build."""
+    srcs = [os.path.join(csrc, s) for s in _SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + [os.path.join(_CSRC, s) for s in _HEADERS]:
+    for s in srcs + [os.path.join(csrc, s) for s in _HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, f"libnw_{h.hexdigest()[:16]}.so")
@@ -115,8 +119,8 @@ def build() -> dict:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build()["path"])
+def _lib(csrc: str = _CSRC) -> ctypes.CDLL:
+    lib = ctypes.CDLL(build(csrc)["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nw_stats_launch.restype = i
     lib.nw_stats_launch.argtypes = [
@@ -131,22 +135,22 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def resident_slots(kernel: str, L: int) -> int:
+def resident_slots(kernel: str, L: int, csrc: str = _CSRC) -> int:
     """Warps of `kernel` ("nw_stats" or "nw_forward") at bucket L that fit
     on the current card at once: past L = STRIP a launch holds at most
     this many, each looping over pairs."""
-    n = getattr(_lib(), f"{kernel}_slots")(L)
+    n = getattr(_lib(csrc), f"{kernel}_slots")(L)
     if n <= 0:
         raise RuntimeError(f"{kernel}: no resident warp at L={L}")
     return n
 
 
-def _slots_and_scratch(kernel: str, B: int, L: int, dev):
+def _slots_and_scratch(kernel: str, B: int, L: int, dev, csrc: str):
     """Warp slots of a launch over B pairs and its strip-boundary scratch
     (None up to L = STRIP, where a launch has one warp per pair)."""
     if L <= STRIP:
         return B, None
-    n = min(B, resident_slots(kernel, L))
+    n = min(B, resident_slots(kernel, L, csrc))
     return n, torch.empty((n, 2, 2 * L, 4), dtype=torch.int32, device=dev)
 
 
@@ -176,6 +180,32 @@ def _stream_ptr(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def launch(kernel: str, X, Y, xlen, ylen, igap: int, egap: int, *,
+           max_len: int, csrc: str = _CSRC):
+    """One launch of `kernel` ("nw_stats" or "nw_forward") built from the
+    sources in `csrc`, on CUDA tensors; returns its raw outputs and counts
+    nothing.  The wrappers below count their launches; chip_smoke.py
+    calls this directly to time another checkout's kernels beside these."""
+    B, L = _check_inputs(X, Y, xlen, ylen, max_len)
+    dev = X.device
+    if kernel == "nw_stats":
+        outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5)]
+    else:
+        # the kernel writes every word of bp (-1 outside the valid region)
+        outs = [torch.empty((B, 2 * L - 1, L), dtype=torch.int32, device=dev)]
+        outs += [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    n_slots, scratch = _slots_and_scratch(kernel, B, L, dev, csrc)
+    err = getattr(_lib(csrc), f"{kernel}_launch")(
+        X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
+        B, L, int(igap), int(egap),
+        None if scratch is None else scratch.data_ptr(), n_slots,
+        *[o.data_ptr() for o in outs], _stream_ptr(dev),
+    )
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
+    return outs
+
+
 def nw_stats(X, Y, xlen, ylen, igap: int, egap: int, *, max_len: int):
     """Function S over [B, L] code rows.  Returns NWStatsResult of [B]
     int32 (best_score, best_i, best_j, length, identities), bit-equal to
@@ -184,17 +214,7 @@ def nw_stats(X, Y, xlen, ylen, igap: int, egap: int, *, max_len: int):
         return nw_stats_batch(X, Y, xlen, ylen, igap, egap, max_len=max_len)
     if X.device.type != "cuda":
         raise ValueError(f"nw_stats runs on cpu or cuda, not {X.device}")
-    B, L = _check_inputs(X, Y, xlen, ylen, max_len)
-    outs = [torch.empty(B, dtype=torch.int32, device=X.device) for _ in range(5)]
-    n_slots, scratch = _slots_and_scratch("nw_stats", B, L, X.device)
-    err = _lib().nw_stats_launch(
-        X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
-        B, L, int(igap), int(egap),
-        None if scratch is None else scratch.data_ptr(), n_slots,
-        *[o.data_ptr() for o in outs], _stream_ptr(X.device),
-    )
-    if err:
-        raise RuntimeError(f"nw_stats launch failed: cudaError_t {err}")
+    outs = launch("nw_stats", X, Y, xlen, ylen, igap, egap, max_len=max_len)
     nw_stats.launches += 1
     return NWStatsResult(*outs)
 
@@ -211,21 +231,9 @@ def nw_forward(X, Y, xlen, ylen, igap: int, egap: int, *, max_len: int):
         return nw_forward_batch(X, Y, xlen, ylen, igap, egap, max_len=max_len)
     if X.device.type != "cuda":
         raise ValueError(f"nw_forward runs on cpu or cuda, not {X.device}")
-    B, L = _check_inputs(X, Y, xlen, ylen, max_len)
-    # the kernel writes every word of bp (-1 outside the valid region)
-    bp = torch.empty((B, 2 * L - 1, L), dtype=torch.int32, device=X.device)
-    best = [torch.empty(B, dtype=torch.int32, device=X.device) for _ in range(3)]
-    n_slots, scratch = _slots_and_scratch("nw_forward", B, L, X.device)
-    err = _lib().nw_forward_launch(
-        X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
-        B, L, int(igap), int(egap),
-        None if scratch is None else scratch.data_ptr(), n_slots,
-        bp.data_ptr(), *[o.data_ptr() for o in best], _stream_ptr(X.device),
-    )
-    if err:
-        raise RuntimeError(f"nw_forward launch failed: cudaError_t {err}")
+    outs = launch("nw_forward", X, Y, xlen, ylen, igap, egap, max_len=max_len)
     nw_forward.launches += 1
-    return NWResult(bp, *best)
+    return NWResult(*outs)
 
 
 nw_forward.launches = 0

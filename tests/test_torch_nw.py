@@ -18,6 +18,8 @@ from imsame_tpu_torch.ops import nw_cuda
 from imsame_tpu_torch.ops import resolve as tresolve
 from imsame_tpu_torch.ops import traceback as ttb
 
+from chip_smoke import TIE_KINDS, tie_pairs
+
 IGAP, EGAP = -5, -2
 
 
@@ -102,6 +104,18 @@ def test_nw_forward_and_traceback_match_jax(seed, L):
 def test_nw_stats_long_matches_jax(L):
     """The long-read buckets, where the kernel walks its rows in strips."""
     j, t = _both(_long_pairs(np.random.default_rng(300 + L), 4, L))
+    want = jnw.nw_stats_batch(*j, IGAP, EGAP, max_len=L)
+    got = tnw.nw_stats_batch(*t, IGAP, EGAP, max_len=L)
+    for f in want._fields:
+        _eq(getattr(got, f), getattr(want, f), f)
+
+
+@pytest.mark.parametrize("L", [256, 512])
+@pytest.mark.parametrize("kind", TIE_KINDS)
+def test_nw_stats_ties_match_jax(kind, L):
+    """Tie-heavy pairs, in one strip (256) and across two (512): the pairs
+    that chip_smoke.py holds the kernel to on the card."""
+    j, t = _both(tie_pairs(kind, L))
     want = jnw.nw_stats_batch(*j, IGAP, EGAP, max_len=L)
     got = tnw.nw_stats_batch(*t, IGAP, EGAP, max_len=L)
     for f in want._fields:
