@@ -17,17 +17,20 @@ Phases, in order; any failure raises and exits non-zero:
                 reads, and pairs longer than the bucket (a batch's padding
                 pairs repeat read 0, which may be), at L = 128 and 256 and
                 appended to every long bucket's batch; tie-heavy pairs
-                (tie_pairs) at 256 and 512; the short path's shapes at
-                L = 256 (mixed pairs, lengths 2..256); every long bucket at
-                the batches the compare and render paths use (lengths
+                (tie_pairs) at 256 and 512, and for nw_forward at 1024 and
+                3072 (4 and 12 strips handing off); the short path's shapes
+                at L = 256 (mixed pairs, lengths 2..256); every long bucket
+                at the batches the compare and render paths use (lengths
                 0.6L..L): nw_stats at B = 256 and, at 512/1024, 2048;
                 nw_forward at the render ladder's top batch (1024, 256, 64,
-                24); past the card's resident warps (2 x
-                nw_cuda.resident_slots + 8 pairs of 0.05L..L: nw_stats at
-                2048 and 3072, nw_forward at 512), where each warp loops
-                over pairs; the long 20k compare's largest launch (nw_stats
-                at 3072, B = 32,768, held on a slice of 2 x resident slots
-                + 8 pairs); and the test shapes of the Pallas functions off
+                24) and its 8-pair tail; past the pairs resident on the
+                card (2 x nw_cuda.resident_pairs + 8 pairs of 0.05L..L:
+                nw_stats at 2048 and 3072, where each warp loops over
+                pairs, and nw_forward at 512 and 3072, where blocks run in
+                waves; nw_forward at 3072 held on a slice of 32 pairs); the
+                long 20k compare's largest launch (nw_stats at 3072, B =
+                32,768, held on a slice of 2 x resident + 8 pairs); and the
+                test shapes of the Pallas functions off
                 the path (tests/test_nw_pallas.py, tests/test_nw_stats.py,
                 tests/test_longreads.py).  Times the kernel and the plain
                 version with CUDA events and prints real cells/s and the
@@ -35,7 +38,7 @@ Phases, in order; any failure raises and exits non-zero:
                 version runs once per (function, bucket), on the batch and
                 its 8 appended pairs, and the kernel is timed on the batch
                 alone (and on a smaller slice of it).  Prints each
-                kernel's resident slots per bucket.
+                kernel's resident pairs per bucket.
   4. slice   -- TorchEngine(db, Config(), device="cuda").compare(q) and
                 render_report on the 20k x 20k, 250 bp bench workload
                 (bench.py synth_pair(20000, 250, 0.5, seed=12345)): must
@@ -55,7 +58,7 @@ Phases, in order; any failure raises and exits non-zero:
                 batch shapes per bucket.
 
 A long path that launches a kernel past L = 256 on more pairs than the
-card's resident warps fails unless phase 3 held such a batch at that
+card holds at once fails unless phase 3 held such a batch at that
 bucket.  Each path runs once more on the warm engine, traced by
 torch.profiler: a "profile" line gives that run's device-busy share and
 leading device work.  Each path's kernel launches are counted from 0 just
@@ -65,13 +68,15 @@ each kernel's launches on those paths, error, times and bound, then
 
 With --ab PARENT [DIR] (PARENT another checkout, e.g. the parent commit
 unpacked by git archive into build/parent) it runs phases 1-2, builds
-the parent's kernels too, prints both libraries' nw_stats SASS sizes,
-and times the two checkouts' kernels in turns on every case of phase 3
-(phase_ab), writing the rows and SASS listings to DIR if given; it runs
-no plain version and no path.
+the parent's kernels with the parent's own ops/nw_cuda.py, prints both
+libraries' SASS sizes and cells loops, and times the two checkouts'
+kernels in turns on every case of phase 3 (phase_ab), writing the rows
+and SASS listings to DIR if given; it runs no plain version and no
+path.
 """
 
 import hashlib
+import importlib.util
 import json
 import random
 import re
@@ -257,11 +262,14 @@ def timed_once(fn):
 
 
 def max_abs_err(got, want) -> int:
-    errs = [int((a.long() - b.long()).abs().max()) for a, b in zip(got, want)]
+    """0 when every output equals its reference; raises otherwise (the
+    error is taken 8 pairs at a time: a long batch's bp is tens of GB)."""
     for a, b in zip(got, want):
         if not torch.equal(a, b):
-            raise AssertionError(f"kernel differs from plain: max err {max(errs)}")
-    return max(errs)
+            err = max(int((x.long() - y.long()).abs().max())
+                      for x, y in zip(a.split(8), b.split(8)))
+            raise AssertionError(f"kernel differs from plain: max err {err}")
+    return 0
 
 
 def phase_device() -> str:
@@ -288,16 +296,22 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build(csrc: str | None = None) -> None:
+def phase_build() -> None:
     t0 = time.perf_counter()
     native.build()
     if native.load() is None:
         raise RuntimeError("native host library did not load")
     print(f"build host.c (gcc): {time.perf_counter() - t0:.2f} s")
-    info = nw_cuda.build(*([csrc] if csrc else []))
-    print(f"build nw kernels (nvcc sm_90a){' of ' + csrc if csrc else ''}: "
-          f"{info['seconds']:.2f} s")
+    build_kernels(nw_cuda, "")
+
+
+def build_kernels(mod, label: str) -> str:
+    """Builds the kernels of `mod` (an ops/nw_cuda.py module); prints the
+    seconds and the ptxas report; returns the library's path."""
+    info = mod.build()
+    print(f"build nw kernels (nvcc sm_90a){label}: {info['seconds']:.2f} s")
     print(info["log"].strip())
+    return info["path"]
 
 
 def real_cells(args, Lb: int) -> int:
@@ -426,11 +440,12 @@ def kernel_cases(rng):
         for name in KERNELS:
             yield name, (X, Y, xlen, ylen), Lb, dict(
                 reps=3, note=" [empty, over-long]")
-    # tie-heavy pairs, where the best cell's tie-break decides
-    for Lb in (L, 512):
+    # tie-heavy pairs, where the best cell's tie-break decides; nw_forward
+    # also across 4 and 12 strips handing off
+    for Lb in (L, 512, 1024, 3072):
         ties = [np.concatenate(a) for a in
                 zip(*(tie_pairs(kind, Lb) for kind in TIE_KINDS))]
-        for name in KERNELS:
+        for name in KERNELS if Lb <= 512 else ("nw_forward",):
             yield name, to_cuda(*ties), Lb, dict(reps=3, note=" [ties]")
     # the short path's shapes (as measured since the 256-bucket port)
     for name, B in (("nw_stats", 256), ("nw_stats", 2048),
@@ -442,23 +457,26 @@ def kernel_cases(rng):
         B = 2048 if Lb <= 1024 else 256
         yield "nw_stats", long_pairs(rng, B + 8, Lb, True), Lb, dict(
             timed=(B, 256))
+    # the render ladder's top chunk and its 8-pair tail
     for Lb, B in zip(LONG, (1024, 256, 64, 24)):
         yield "nw_forward", long_pairs(rng, B + 8, Lb, True), Lb, dict(
-            timed=(B,))
-    # past the card's resident warps, where each warp loops over pairs and
-    # reuses its strip scratch (the long compare's stats batches at 2048
-    # and 3072 hold thousands of pairs); lengths from 0.05L so that short
-    # and long pairs follow each other in one warp
-    for name, Lb in (("nw_stats", 2048), ("nw_stats", 3072),
-                     ("nw_forward", 512)):
-        B = 2 * nw_cuda.resident_slots(name, Lb) + 8
+            timed=(B, 8))
+    # past the pairs resident on the card: nw_stats's warps loop over
+    # pairs and reuse their strip scratch (the long compare's stats
+    # batches at 2048 and 3072 hold thousands of pairs), nw_forward's
+    # blocks run in waves; lengths from 0.05L so that short and long pairs
+    # follow each other; nw_forward at 3072 held on a slice of 32 pairs
+    for name, Lb, pb in (("nw_stats", 2048, None), ("nw_stats", 3072, None),
+                         ("nw_forward", 512, None),
+                         ("nw_forward", 3072, 32)):
+        B = 2 * nw_cuda.resident_pairs(name, Lb) + 8
         yield name, long_pairs(rng, B + 8, Lb, True, 0.05), Lb, dict(
-            reps=2, timed=(B,), note=" [> resident warps]")
+            reps=2, timed=(B,), plain_B=pb, note=" [> resident]")
     # the long 20k compare's largest launch, held on a slice of 2 x
     # resident warps + 8 pairs
     B = BIG_B
     yield "nw_stats", big_pairs(rng, B, 3072), 3072, dict(
-        reps=2, plain_B=2 * nw_cuda.resident_slots("nw_stats", 3072) + 8,
+        reps=2, plain_B=2 * nw_cuda.resident_pairs("nw_stats", 3072) + 8,
         note=" [long 20k launch]")
     # test shapes of the Pallas functions no path here takes as such
     for name, Lb, B, make, note in (
@@ -481,16 +499,16 @@ def phase_kernels() -> list:
     for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
         check_case(cases, name, args, Lb, **opts)
     for Lb in (128, L) + LONG:
-        print(f"resident_slots nw_stats L={Lb}: "
-              f"{nw_cuda.resident_slots('nw_stats', Lb)}, nw_forward: "
-              f"{nw_cuda.resident_slots('nw_forward', Lb)}")
+        print(f"resident pairs nw_stats L={Lb}: "
+              f"{nw_cuda.resident_pairs('nw_stats', Lb)}, nw_forward: "
+              f"{nw_cuda.resident_pairs('nw_forward', Lb)}")
     return cases
 
 
 def sass_loops(so: str, tag: str, out_dir: str | None) -> None:
-    """Per nw_stats instantiation of the library `so`: its SASS
-    instruction count (cuobjdump -sass) and its cells loop: the smallest
-    loop (a backward branch's span) with at least 9 shuffles and no warp
+    """Per kernel instantiation of the library `so`: its SASS instruction
+    count (cuobjdump -sass) and its cells loop: the smallest loop (a
+    backward branch's span) with at least 9 shuffles and no warp
     collective (those are the pair's epilogue), printed with its static
     instruction and shuffle counts; its cold blocks (best-cell offers,
     boundary ring) are included.  With `out_dir` the whole listing goes
@@ -502,7 +520,8 @@ def sass_loops(so: str, tag: str, out_dir: str | None) -> None:
         Path(out_dir, f"sass_{tag}.txt").write_text(out)
     for part in out.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "nw_stats" not in name:
+        kn = re.search(r"(nw_\w+?)_kernelILi(\d+)ELi(\d+)E", name)
+        if not kn:
             continue
         ins = [(int(a, 16), t) for a, t in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;\n]*);", part)]
@@ -517,32 +536,56 @@ def sass_loops(so: str, tag: str, out_dir: str | None) -> None:
             if shfl >= 9 and not any("ENDCOLLECTIVE" in x for x in body) \
                     and (best is None or len(body) < best[0]):
                 best = (len(body), shfl)
-        kn = re.search(r"kernelILi(\d+)ELi(\d+)E", name)
-        print(f"sass {tag} nw_stats K={kn[1]} NS={kn[2]}: {len(ins)} "
-              f"instructions; cells loop {best[0]} instructions, "
-              f"{best[1]} shuffles")
+        loop = (f"cells loop {best[0]} instructions, {best[1]} shuffles"
+                if best else "no cells loop found")
+        print(f"sass {tag} {kn[1]} K={kn[2]} NS={kn[3]}: {len(ins)} "
+              f"instructions; {loop}")
+
+
+def checkout_nw_cuda(root: str):
+    """ops/nw_cuda.py of another checkout (e.g. the parent commit unpacked
+    by git archive), imported with that checkout's own imsame_tpu_torch
+    as a package of another name; its kernels build into that
+    checkout's build/."""
+    pkg = Path(root).resolve() / "imsame_tpu_torch"
+    name = "parent_imsame_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{name}.ops.nw_cuda")
+
+
+def resident(mod, kernel: str, Lb: int) -> int:
+    """Pairs of `kernel` in flight on the card at once, by the nw_cuda
+    module `mod` (resident_slots in checkouts before nw_forward's strips
+    ran on parallel warps)."""
+    fn = getattr(mod, "resident_pairs", None) or mod.resident_slots
+    return fn(kernel, Lb)
 
 
 def phase_ab(parent: str, out_dir: str | None = None) -> None:
     """Times the kernels of another checkout (`parent`, e.g. the parent
     commit unpacked with git archive) and of this one on the same inputs,
     in turns (parent, this, this, parent), on every kernel case; this
-    checkout's outputs must equal the parent's bit for bit.  Prints one
-    line per case; runs no plain version.  With `out_dir` it also writes
-    the rows (out_dir/ab_kernels.json) and both SASS listings there."""
-    pc = str(Path(parent).resolve() / "imsame_tpu_torch" / "csrc")
+    checkout's outputs must equal the parent's bit for bit.  Each side
+    launches through its own ops/nw_cuda.py.  Prints one line per case;
+    runs no plain version.  With `out_dir` it also writes the rows
+    (out_dir/ab_kernels.json) and both SASS listings there."""
+    pmod = checkout_nw_cuda(parent)
     if out_dir:
         Path(out_dir).mkdir(parents=True, exist_ok=True)
-    phase_build(pc)
-    for who, src in (("parent", pc), ("new", None)):
+    libs = {"parent": build_kernels(pmod, f" of {parent}"),
+            "new": nw_cuda.build()["path"]}
+    for who, so in libs.items():
         print(f"{who}:")
-        sass_loops(nw_cuda.build(*([src] if src else []))["path"], who,
-                   out_dir)
+        sass_loops(so, who, out_dir)
     rows = []
     for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
         runs = {
-            "parent": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
-                                             max_len=Lb, csrc=pc),
+            "parent": lambda: pmod.launch(name, *args, IGAP, EGAP,
+                                          max_len=Lb),
             "new": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
                                           max_len=Lb),
         }
@@ -565,9 +608,9 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
               f" bound {b_ms:.3f} ms ({b_by})")
         del args
     for Lb in (128, L) + LONG:
-        print(f"resident_slots nw_stats L={Lb}: parent "
-              f"{nw_cuda.resident_slots('nw_stats', Lb, pc)}, new "
-              f"{nw_cuda.resident_slots('nw_stats', Lb)}")
+        print(f"resident pairs L={Lb}: " + ", ".join(
+            f"{k} parent {resident(pmod, k, Lb)}, new "
+            f"{nw_cuda.resident_pairs(k, Lb)}" for k in KERNELS))
     if out_dir:
         Path(out_dir, "ab_kernels.json").write_text(json.dumps(rows, indent=1))
 
@@ -660,17 +703,19 @@ def phase_slice() -> dict:
 
 def assert_checked(shapes: dict, cases: list) -> None:
     """Fails if a path launched a kernel past L = 256 on more pairs than
-    the card's resident warps, at a bucket where the kernels phase held no
-    such batch against the plain version."""
+    the card holds at once (nw_stats: its warp slots, which then loop over
+    pairs; nw_forward: its blocks, which then run in waves), at a bucket
+    where the kernels phase held no such batch against the plain
+    version."""
     for name, rows in shapes.items():
         for Lb, B in set(rows):
-            slots = nw_cuda.resident_slots(name, Lb)
-            if Lb > nw_cuda.STRIP and B > slots and not any(
-                c["kernel"] == name and c["L"] == Lb and c["plain_B"] > slots
+            n = nw_cuda.resident_pairs(name, Lb)
+            if Lb > nw_cuda.STRIP and B > n and not any(
+                c["kernel"] == name and c["L"] == Lb and c["plain_B"] > n
                 for c in cases
             ):
                 raise AssertionError(
-                    f"{name} ran B={B} > {slots} resident warps at L={Lb}, "
+                    f"{name} ran B={B} > {n} resident pairs at L={Lb}, "
                     "a shape no kernel case checked")
 
 

@@ -10,7 +10,8 @@ identity/coverage reporting with sample-level Jaccard similarity.
 Layout (mirrors imsame_tpu/):
   io/        FASTA ingest, report rendering (host, numpy)
   index/     flat sorted k-mer index
-  native/    ctypes loader of the host C runtime (imsame_tpu/native/host.c)
+  native/    the host C runtime (host.c, a copy of imsame_tpu's) and its
+             ctypes loader
   ops/       device compute: extension gate (torch), NW aligners (CUDA
              kernels in csrc/ + plain torch versions), traceback (torch)
   csrc/      hand-written CUDA kernels for sm_90a (H100)

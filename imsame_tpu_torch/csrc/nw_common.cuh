@@ -1,9 +1,10 @@
 // nw_common.cuh: what the two NW kernels, nw_stats.cu (function S) and
 // nw_forward.cu (function F), share: constants, the length buckets, the
 // strip bounds, the row shift of the wavefront, the query-row load and
-// the launch geometry.  nw_stats.cu describes the design (warp per pair,
-// K rows per lane, strips of 32*K rows past L = 256, a per-warp boundary
-// in global memory).
+// the launch geometry.  Both put K rows on a lane and strips of 32*K rows
+// on a warp; nw_stats.cu walks a pair's strips on one warp (a per-warp
+// boundary in global memory), nw_forward.cu runs them on the warps of one
+// block past L = 256.
 
 #pragma once
 
@@ -16,7 +17,7 @@ constexpr int kPoint = 4;
 constexpr int kNeg = -(1 << 28);
 constexpr int kNoBest = -2147483647;  // -(2^31) + 1, below any packed cell
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 4;  // pairs per block: the batch tile
+constexpr int kWarpsPerBlock = 4;  // warp-per-pair blocks: the batch tile
 
 // (L, K, NS) of every length bucket: K rows per lane, NS strips of 32*K
 #define NW_BUCKETS(F) \

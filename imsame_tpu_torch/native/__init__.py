@@ -1,10 +1,9 @@
 """ctypes loader for the native host runtime.
 
-The C source is ``imsame_tpu/native/host.c``, the JAX package's host
-runtime, compiled here by file path (reading a C file imports nothing of
-that package) with the system gcc into the repository's ``build/``
-directory, keyed by the source's hash, so an edited source rebuilds and
-the JAX package's own library is never touched.
+The C source is this package's own ``native/host.c`` (a copy of the JAX
+package's host runtime, kept here so that the port reads no file of that
+package), compiled with the system gcc into the repository's ``build/``
+directory, keyed by the source's hash, so an edited source rebuilds.
 
 Nothing is built at import: the library is compiled and loaded on the
 first read of ``lib`` (or a call to ``load``).  If no compiler is
@@ -26,11 +25,9 @@ import subprocess
 
 import numpy as np
 
-_REPO = os.path.dirname(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-)
-_SRC = os.path.join(_REPO, "imsame_tpu", "native", "host.c")
-BUILD_DIR = os.path.join(_REPO, "build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(_HERE, "host.c")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 
 i8 = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 i32 = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
@@ -42,7 +39,7 @@ def build() -> str:
     """Compile host.c unless a library for its current hash exists;
     returns the library's path.  Raises OSError or
     subprocess.SubprocessError when the build fails."""
-    with open(_SRC, "rb") as f:
+    with open(SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"libhost_{digest}.so")
     if not os.path.exists(so):
@@ -51,7 +48,7 @@ def build() -> str:
         subprocess.run(
             [
                 "gcc", "-O3", "-shared", "-fPIC", "-fvisibility=hidden",
-                _SRC, "-o", tmp, "-lpthread",
+                SRC, "-o", tmp, "-lpthread",
             ],
             check=True, capture_output=True, timeout=120,
         )

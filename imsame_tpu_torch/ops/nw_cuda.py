@@ -15,20 +15,19 @@ module import.
 Each wrapper takes the plain torch version's arguments.  A CPU tensor
 goes to the plain version in ops/nw.py; a CUDA tensor launches the kernel
 on the current stream, or raises: there is no fallback.  ``launch``
-validates device, dtype, shape and contiguity, allocates the outputs (and,
-past L = 256, the kernel's strip-boundary scratch) with ``torch.empty``
-and raises if the launcher returns a CUDA error; each wrapper adds one to
-its ``launches`` attribute per kernel launch.  ``launch`` also takes
-another checkout's ``csrc`` directory, so chip_smoke.py can time two
-versions of a kernel side by side.
+validates device, dtype, shape, contiguity and alignment, allocates the
+outputs (and, for ``nw_stats`` past L = 256, its strip-boundary scratch)
+with ``torch.empty`` and raises if the launcher returns a CUDA error; each
+wrapper adds one to its ``launches`` attribute per kernel launch.
 
 Both kernels are instantiated for every length bucket of
 ``Config.length_buckets``.  Up to L = 256 a launch has one warp per pair.
-Past it each warp walks its pair's rows in strips of 256 and hands each
-strip's bottom boundary to the next through a scratch of 2 x 2L x 16
-bytes per warp, so a launch holds at most as many warps as fit on the
-card at once (``resident_slots``: 12 per SM for ``nw_stats``, 8 for
-``nw_forward``), and each warp loops over pairs.
+Past it ``nw_stats`` walks a pair's rows in strips of 256 on one warp,
+handing each strip's bottom boundary to the next through a scratch of 2 x
+2L x 16 bytes per warp, so a launch holds at most as many warps as fit on
+the card at once (``resident_pairs``) and each warp loops over pairs;
+``nw_forward`` runs a pair's strips at once on the warps of one block,
+one block per pair.
 """
 
 from __future__ import annotations
@@ -55,7 +54,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-TILE = 4  # pairs per thread block (kWarpsPerBlock in both sources)
+TILE = 4  # batch multiple: pairs per block up to L = 256 (kWarpsPerBlock)
 LENGTHS = Config.length_buckets  # buckets the kernels are instantiated for
 STRIP = 256  # rows per strip past this length (32 lanes x 8 rows)
 
@@ -88,14 +87,13 @@ def _run(cmds: list, timeout: int) -> str:
     return "".join(outs)
 
 
-def build(csrc: str = _CSRC) -> dict:
-    """Compile both kernels of the sources in `csrc` (default: this
-    package's) unless a library for them exists.  Returns {"path",
-    "seconds", "log"} (log: ptxas register and spill report of a fresh
-    build).  Raises RuntimeError on a failed build."""
-    srcs = [os.path.join(csrc, s) for s in _SOURCES]
+def build() -> dict:
+    """Compile both kernels unless a library for their sources exists.
+    Returns {"path", "seconds", "log"} (log: ptxas register and spill
+    report of a fresh build).  Raises RuntimeError on a failed build."""
+    srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs + [os.path.join(csrc, s) for s in _HEADERS]:
+    for s in srcs + [os.path.join(_CSRC, s) for s in _HEADERS]:
         with open(s, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, f"libnw_{h.hexdigest()[:16]}.so")
@@ -119,39 +117,33 @@ def build(csrc: str = _CSRC) -> dict:
 
 
 @functools.cache
-def _lib(csrc: str = _CSRC) -> ctypes.CDLL:
-    lib = ctypes.CDLL(build(csrc)["path"])
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nw_stats_launch.restype = i
     lib.nw_stats_launch.argtypes = [
         p, p, p, p, i, i, i, i, p, i, p, p, p, p, p, p
     ]
     lib.nw_forward_launch.restype = i
-    lib.nw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, p, i, p, p, p, p, p]
-    for name in ("nw_stats_slots", "nw_forward_slots"):
+    lib.nw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
+    for name in ("nw_stats_slots", "nw_forward_resident"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i]
     return lib
 
 
 @functools.cache
-def resident_slots(kernel: str, L: int, csrc: str = _CSRC) -> int:
-    """Warps of `kernel` ("nw_stats" or "nw_forward") at bucket L that fit
-    on the current card at once: past L = STRIP a launch holds at most
-    this many, each looping over pairs."""
-    n = getattr(_lib(csrc), f"{kernel}_slots")(L)
+def resident_pairs(kernel: str, L: int) -> int:
+    """Pairs of `kernel` ("nw_stats" or "nw_forward") at bucket L in
+    flight on the current card at once: nw_stats's warp slots (past L =
+    STRIP a launch holds at most this many, each looping over pairs),
+    nw_forward's warps up to STRIP and blocks past it (a launch past this
+    many runs in waves)."""
+    fn = "nw_stats_slots" if kernel == "nw_stats" else "nw_forward_resident"
+    n = getattr(_lib(), fn)(L)
     if n <= 0:
-        raise RuntimeError(f"{kernel}: no resident warp at L={L}")
+        raise RuntimeError(f"{kernel}: no resident pair at L={L}")
     return n
-
-
-def _slots_and_scratch(kernel: str, B: int, L: int, dev, csrc: str):
-    """Warp slots of a launch over B pairs and its strip-boundary scratch
-    (None up to L = STRIP, where a launch has one warp per pair)."""
-    if L <= STRIP:
-        return B, None
-    n = min(B, resident_slots(kernel, L, csrc))
-    return n, torch.empty((n, 2, 2 * L, 4), dtype=torch.int32, device=dev)
 
 
 def _check_inputs(X, Y, xlen, ylen, max_len):
@@ -173,6 +165,8 @@ def _check_inputs(X, Y, xlen, ylen, max_len):
             raise ValueError(f"{name} must be {dtype} {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if dtype == torch.uint8 and t.data_ptr() % 16:  # rows load as uint4
+            raise ValueError(f"{name} must be 16-byte aligned")
     return B, L
 
 
@@ -181,26 +175,29 @@ def _stream_ptr(dev) -> int:
 
 
 def launch(kernel: str, X, Y, xlen, ylen, igap: int, egap: int, *,
-           max_len: int, csrc: str = _CSRC):
-    """One launch of `kernel` ("nw_stats" or "nw_forward") built from the
-    sources in `csrc`, on CUDA tensors; returns its raw outputs and counts
-    nothing.  The wrappers below count their launches; chip_smoke.py
-    calls this directly to time another checkout's kernels beside these."""
+           max_len: int):
+    """One launch of `kernel` ("nw_stats" or "nw_forward") on CUDA
+    tensors; returns its raw outputs and counts nothing.  The wrappers
+    below count their launches; chip_smoke.py calls this directly to time
+    another checkout's kernels beside these."""
     B, L = _check_inputs(X, Y, xlen, ylen, max_len)
     dev = X.device
+    ptrs = [X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
+            B, L, int(igap), int(egap)]
     if kernel == "nw_stats":
         outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5)]
+        n_slots, scratch = B, None
+        if L > STRIP:
+            n_slots = min(B, resident_pairs(kernel, L))
+            scratch = torch.empty((n_slots, 2, 2 * L, 4), dtype=torch.int32,
+                                  device=dev)
+        ptrs += [None if scratch is None else scratch.data_ptr(), n_slots]
     else:
         # the kernel writes every word of bp (-1 outside the valid region)
         outs = [torch.empty((B, 2 * L - 1, L), dtype=torch.int32, device=dev)]
         outs += [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
-    n_slots, scratch = _slots_and_scratch(kernel, B, L, dev, csrc)
-    err = getattr(_lib(csrc), f"{kernel}_launch")(
-        X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
-        B, L, int(igap), int(egap),
-        None if scratch is None else scratch.data_ptr(), n_slots,
-        *[o.data_ptr() for o in outs], _stream_ptr(dev),
-    )
+    err = getattr(_lib(), f"{kernel}_launch")(
+        *ptrs, *[o.data_ptr() for o in outs], _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
     return outs

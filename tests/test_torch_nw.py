@@ -122,6 +122,26 @@ def test_nw_stats_ties_match_jax(kind, L):
         _eq(getattr(got, f), getattr(want, f), f)
 
 
+@pytest.mark.parametrize("L", [256, 512])
+@pytest.mark.parametrize("kind", TIE_KINDS)
+def test_nw_forward_ties_match_jax(kind, L):
+    """Function F and the traceback on the tie-heavy pairs, in one strip
+    (256) and across two (512), where the best cell's tie-break and the
+    from-words of tied moves decide: chip_smoke.py holds the kernel to
+    them on the card (and at 1024 and 3072)."""
+    j, t = _both(tie_pairs(kind, L))
+    want = jnw.nw_forward_batch(*j, IGAP, EGAP, max_len=L)
+    got = tnw.nw_forward_batch(*t, IGAP, EGAP, max_len=L)
+    for f in want._fields:
+        _eq(getattr(got, f), getattr(want, f), f)
+    tb_want = jtb.traceback_batch(
+        want.bp, want.best_i, want.best_j, j[0], j[1], max_len=L
+    )
+    tb_got = ttb.traceback_batch(got.bp, got.best_i, got.best_j, max_len=L)
+    for f in tb_want._fields:
+        _eq(getattr(tb_got, f), getattr(tb_want, f), f)
+
+
 @pytest.mark.parametrize("L", [512, 3072])
 def test_nw_forward_and_traceback_long_match_jax(L):
     j, t = _both(_long_pairs(np.random.default_rng(400 + L), 4, L))

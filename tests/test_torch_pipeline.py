@@ -282,6 +282,17 @@ def test_gate_chunk_sizes(window):
         assert sizes == [87_360, 1 << 16]
 
 
+def test_native_source_is_the_ports_own():
+    """The host runtime is compiled from the port's own copy of host.c,
+    never from a file of the JAX package."""
+    import imsame_tpu_torch
+    import imsame_tpu_torch.native as tnative
+
+    src = Path(tnative.SRC).resolve()
+    assert src.is_relative_to(Path(imsame_tpu_torch.__file__).resolve().parent)
+    assert src.is_file()
+
+
 def test_port_imports_without_jax(tmp_path):
     """The port never imports jax or imsame_tpu: with both blocked it
     imports and runs a tiny compare on the CPU."""
