@@ -56,6 +56,27 @@ Phases, in order; any failure raises and exits non-zero:
                 and 1% indels (numpy, seed 2024): compare only; must accept
                 10,000 reads, each with its own copy; prints the kernels'
                 batch shapes per bucket.
+  7. sweep   -- the all-vs-all sweep of bench.py sweep_bench's four
+                samples of 20,000 reads of 250 bp (write_sweep_samples):
+                AllVsAllRunner(out, Config(), device="cuda").run must
+                finish its 12 jobs (6 sample pairs, forward and revcomp)
+                with no failure; prints the wall, sample pairs/hour, each
+                job's accepted count and seconds and the kernels'
+                launches.  Then: each job again through a serial
+                TorchEngine compare + render_report (db through
+                revcomp_fasta_bytes for .r jobs), whose report must equal
+                the sweep's file byte for byte (prints each job's serial
+                compare and render walls); a second runner on the same
+                outdir must build no engine and return the same stats;
+                the same sweep of 2,000-read samples must give the JAX
+                sweep's 12 accepted counts and report hashes
+                (REF_SWEEP_2K); so must a sweep of small samples holding
+                reverse-complemented copies, whose .r jobs accept reads
+                (write_rc_samples, REF_SWEEP_RC); and so must two processes
+                of the orchestrator with --distributed on the 2,000-read
+                samples (gloo on localhost, one card), which must print
+                the same total.  A traced pass of the 20k sweep must also
+                finish its 12 jobs with no failure.
 
 A long path that launches a kernel past L = 256 on more pairs than the
 card holds at once fails unless phase 3 held such a batch at that
@@ -78,8 +99,10 @@ path.
 import hashlib
 import importlib.util
 import json
+import os
 import random
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -92,8 +115,11 @@ import torch
 from imsame_tpu_torch import native
 from imsame_tpu_torch.config import Config
 from imsame_tpu_torch.constants import MAX_READ_SIZE
-from imsame_tpu_torch.io.fasta import SeqInfo, read_fasta
+from imsame_tpu_torch.io.fasta import (
+    SeqInfo, parse_fasta_bytes, read_fasta, revcomp_fasta_bytes,
+)
 from imsame_tpu_torch.ops import nw, nw_cuda, resolve
+from imsame_tpu_torch.orchestrator import AllVsAllRunner, list_samples, make_jobs
 from imsame_tpu_torch.pipeline import TorchEngine
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -112,6 +138,71 @@ ACCEPTED_20K = 10005  # the JAX engine's count on the whole workload
 # 1,337,695 bytes).
 REF_LONG_SHA256 = "80e63da61e10b3c35b1f7aa510d4e5d8add261c2edb767df37c04f432b43ee3a"
 REF_LONG_ACCEPTED = 256
+# Per job of the sweep of write_sweep_samples(dir, 2000): (accepted, sha256
+# of the report) written by the JAX package's sweep,
+# imsame_tpu.orchestrator.AllVsAllRunner(out, Config(mesh_shape=None)), on
+# the CPU (the .r jobs accept nothing: the samples hold no reverse
+# complements; their reports are empty).
+REF_SWEEP_2K = {
+    "s0-s1.align": (
+        1000, "7b20082f241a8301960675b6e62109cd76228fe9b9c35a569e68eb4c0f13e8a3"),
+    "s0-s1.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s0-s2.align": (
+        1000, "bc0a17504e46e5377a35dfc2d2d4f45703b3f61d1d98c3790a59f5e87333c27e"),
+    "s0-s2.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s0-s3.align": (
+        1000, "c16e1c108fb65802608690c0ea63e4646f2dbc99e2a3c827fb914569914afe3b"),
+    "s0-s3.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s1-s2.align": (
+        1001, "367253d9c1b74d6635dbe18d68d8c3de956d865af090d412ed6a466d45720398"),
+    "s1-s2.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s1-s3.align": (
+        1001, "dc32a3eade51f9738cd112b0b7986e2f8cefe960be69cfa23af71b920441176f"),
+    "s1-s3.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s2-s3.align": (
+        1000, "c4356787a7dbb0ab1848bfc60f2623c9bc37352a972303094bae827eab0499c8"),
+    "s2-s3.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+}
+# Per job of the sweep of write_rc_samples(dir, RC_READS): (accepted, sha256
+# of the report) written by the JAX package's sweep,
+# imsame_tpu.orchestrator.AllVsAllRunner(out, Config(mesh_shape=None)), on
+# the CPU.  Its samples hold reverse-complemented copies, so the .r jobs of
+# an even and an odd sample accept reads.
+REF_SWEEP_RC = {
+    "s0-s1.align": (
+        40, "4030ac740c4ec959825099eb899ca326fcfae8bdf364f71477268c459c63df82"),
+    "s0-s1.r.align": (
+        40, "06bc4862346c405de59ffe27610a6be3c7292860042363b9b43776e81e0ad053"),
+    "s0-s2.align": (
+        80, "0c894d8555cd0d06289c20cd08d9a6a2984a5dfa67ba074ebca5f327b45b2019"),
+    "s0-s2.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s0-s3.align": (
+        40, "4fd615c3f875ed01d66ccf3f52f28c73cf105c6854012cb9b7dc955363c4ca69"),
+    "s0-s3.r.align": (
+        40, "bf5ba7988c1ef6530ae1f09ddfd4f5794309cac118cfbcb5187430885b243d1e"),
+    "s1-s2.align": (
+        40, "d93865163cf2963d317fee4457ee16204c8ae42ea5503c665a73cbad909de8c4"),
+    "s1-s2.r.align": (
+        40, "7787cfbf459bc6e4f34aaf798190f858c922ac320cf2665819a902b4d25288ae"),
+    "s1-s3.align": (
+        80, "25f8cf7eed10344ebbe31db78b9dfca2b4b20e1b1dd36485a8bb426f3687f08e"),
+    "s1-s3.r.align": (
+        0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "s2-s3.align": (
+        40, "4e385a98cb7859a45ba87e992c48960b8167e47ad6ac5c653212c05316938b65"),
+    "s2-s3.r.align": (
+        40, "50bfda2764e33754f497cdc3f5f03ee95c3c6bda01c66e9e03876bd6fd2cd4e0"),
+}
+RC_READS = 120  # reads per sample of the reverse-complement anchor
+SWEEP_READS = 20000  # reads per sample of the sweep (bench.py sweep_bench)
+SUBPROCESS_TIMEOUT = 300  # seconds, each process of the two-process sweep
 L = 256
 LONG = (512, 1024, 2048, 3072)
 IGAP, EGAP = -5, -2
@@ -860,6 +951,227 @@ def phase_long20k(cases: list) -> dict:
     return launches
 
 
+def write_sweep_samples(directory: Path, n: int) -> list:
+    """bench.py sweep_bench's samples, written as FASTA (one line a read):
+    s0 is the query of synth_pair(n, 250, 0.5, seed=12345); s1-s3 are
+    n // 2 copies of its first reads with 4% substitutions and random
+    reads, shuffled (numpy default_rng(777)).  Returns list_samples."""
+    base = synth_pair(n, 250, 0.5, seed=12345)[0]
+    chars = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(777)
+    n, read_len = base.shape
+    directory.mkdir(parents=True)
+    for s in range(4):
+        if s == 0:
+            mat = base
+        else:
+            nm = n // 2
+            mut = base[:nm].copy()
+            mask = rng.random(mut.shape) < 0.04
+            mut[mask] = (
+                mut[mask] + rng.integers(1, 4, int(mask.sum()), dtype=np.uint8)
+            ) % 4
+            mat = np.concatenate(
+                [mut, rng.integers(0, 4, (n - nm, read_len), dtype=np.uint8)]
+            )
+            mat = mat[rng.permutation(n)]
+        with open(directory / f"s{s}.fasta", "wb") as f:
+            for i in range(n):
+                f.write(b">r%d\n" % i)
+                f.write(chars[mat[i]].tobytes())
+                f.write(b"\n")
+    return list_samples(str(directory), "fasta")
+
+
+def write_rc_samples(directory: Path, n: int) -> list:
+    """Four related samples of n reads of 250 bp (random.Random(2718);
+    tests/util_synth.py): read i is a mutated copy (4% substitutions, 1%
+    indels) of base read i in every sample when i % 3 == 0, a forward copy
+    in even samples and a reverse-complemented one in odd samples when
+    i % 3 == 1, and a random read otherwise.  Returns list_samples."""
+    rng = random.Random(2718)
+    comp = str.maketrans("ACGT", "TGCA")
+    base = [random_read(rng, 250) for _ in range(n)]
+    directory.mkdir(parents=True)
+    for s in range(4):
+        reads = []
+        for i, r in enumerate(base):
+            m = mutate(rng, r, sub_rate=0.04, indel_rate=0.01)
+            if i % 3 == 0 or (i % 3 == 1 and s % 2 == 0):
+                reads.append(m)
+            elif i % 3 == 1:
+                reads.append(m.translate(comp)[::-1])
+            else:
+                reads.append(random_read(rng, 250))
+        write_fasta(directory / f"s{s}.fasta", reads, prefix=f"s{s}r")
+    return list_samples(str(directory), "fasta")
+
+
+def report_digests(out: Path, names) -> dict:
+    """{job: (accepted, sha256 of its report)} of a sweep's outdir."""
+    return {
+        name: (json.loads((out / f"{name}.json").read_text())["accepted"],
+               hashlib.sha256((out / name).read_bytes()).hexdigest())
+        for name in names
+    }
+
+
+def serial_check(samples, out: Path, stats: dict) -> None:
+    """Each job again on its own: a serial TorchEngine compare and
+    render_report (one engine per db sample and strand, the db through
+    revcomp_fasta_bytes for .r jobs, as the sweep builds it); its report
+    must equal the sweep's file byte for byte.  Prints each job's compare
+    and render walls."""
+    engines = {}
+    for job in make_jobs(samples):
+        key = (job.dbname, job.reverse)
+        if key not in engines:
+            t0 = time.perf_counter()
+            if job.reverse:
+                db = parse_fasta_bytes(revcomp_fasta_bytes(job.dbpath.read_bytes()))
+            else:
+                db = read_fasta(str(job.dbpath))
+            engines[key] = TorchEngine(db, Config(), device="cuda")
+            torch.cuda.synchronize()
+            print(f"serial engine {job.dbname}{'.r' if job.reverse else ''}: "
+                  f"{time.perf_counter() - t0:.3f} s")
+        eng = engines[key]
+        q = read_fasta(str(job.qpath))
+        t0 = time.perf_counter()
+        res = eng.compare(q)
+        t1 = time.perf_counter()
+        report = eng.render_report(q, res)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"serial {job.out_name}: compare {t1 - t0:.3f} s, render "
+              f"{t2 - t1:.3f} s, accepted {res.accepted}")
+        if res.accepted != stats[job.out_name]["accepted"] or \
+                report != (out / job.out_name).read_bytes():
+            raise AssertionError(f"sweep report {job.out_name} differs from "
+                                 "the serial engine's")
+
+
+def run_distributed(samples_dir: Path, out: Path, nproc: int = 2) -> list:
+    """nproc processes of the port's orchestrator with --distributed (gloo
+    on localhost, every engine on the one card); returns their tallies."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parent)
+    procs = []
+    for pid in range(nproc):
+        env = dict(os.environ, IMSAME_COORDINATOR=f"127.0.0.1:{port}",
+                   IMSAME_NUM_PROCESSES=str(nproc),
+                   IMSAME_PROCESS_ID=str(pid),
+                   PYTHONPATH=root + os.pathsep + os.environ.get(
+                       "PYTHONPATH", ""))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "imsame_tpu_torch.orchestrator",
+             str(samples_dir), "0.5", "0.5", "1", "fasta", str(out),
+             "--distributed"],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+        ))
+    tallies = []
+    try:
+        for pid, p in enumerate(procs):
+            stdout, stderr = p.communicate(timeout=SUBPROCESS_TIMEOUT)
+            if p.returncode:
+                raise RuntimeError(f"process {pid} of the distributed sweep "
+                                   f"exited {p.returncode}:\n{stderr[-4000:]}")
+            tallies += [int(line.split(":")[1].split("(")[0])
+                        for line in stdout.splitlines()
+                        if "Distributed sweep total accepted" in line]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return tallies
+
+
+def phase_sweep() -> dict:
+    """The all-vs-all sweep, its serial check, resume, the JAX anchors (2k
+    in one process and in two, and the reverse-complement samples), and a
+    traced pass."""
+    with tempfile.TemporaryDirectory() as td:
+        td = Path(td)
+        t0 = time.perf_counter()
+        samples = write_sweep_samples(td / "s20k", SWEEP_READS)
+        print(f"sweep: data {time.perf_counter() - t0:.3f} s, 4 samples of "
+              f"{SWEEP_READS} reads")
+        out = td / "out"
+        zero_counts()
+        t0 = time.perf_counter()
+        runner = AllVsAllRunner(str(out), Config(), device="cuda")
+        stats = runner.run(samples)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        n_pairs = len(samples) * (len(samples) - 1) // 2
+        job_s = sum(e["seconds"] for e in stats.values())
+        print(f"sweep: {len(stats)} jobs, wall {wall:.3f} s, "
+              f"{3600 * n_pairs / wall:.1f} sample pairs/hour, sum of job "
+              f"seconds {job_s:.3f} s, launches {launches}")
+        for name, e in sorted(stats.items()):
+            print(f"sweep {name}: accepted {e['accepted']}, seconds "
+                  f"{e['seconds']:.3f}, candidates {e['candidates']}")
+        if len(stats) != 2 * n_pairs or runner.failures:
+            raise AssertionError(f"sweep: {len(stats)} jobs, failures "
+                                 f"{runner.failures}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel was not launched: {launches}")
+
+        serial_check(samples, out, stats)
+
+        again = AllVsAllRunner(str(out), Config(), device="cuda")
+        if again.run(samples) != stats or len(again._engines):
+            raise AssertionError("the resumed sweep built an engine or "
+                                 "returned other stats")
+        print("sweep resume: no engine built, same stats")
+
+        samples_2k = write_sweep_samples(td / "s2k", 2000)
+        t0 = time.perf_counter()
+        r2k = AllVsAllRunner(str(td / "out2k"), Config(), device="cuda")
+        r2k.run(samples_2k)
+        print(f"sweep 2k: wall {time.perf_counter() - t0:.3f} s")
+        got = report_digests(td / "out2k", REF_SWEEP_2K)
+        if r2k.failures or got != REF_SWEEP_2K:
+            raise AssertionError(f"2k sweep differs from the JAX sweep's: "
+                                 f"{got}, failures {r2k.failures}")
+        print("sweep 2k: 12 accepted counts and report hashes equal the "
+              "JAX sweep's")
+
+        samples_rc = write_rc_samples(td / "src", RC_READS)
+        rrc = AllVsAllRunner(str(td / "out_rc"), Config(), device="cuda")
+        rrc.run(samples_rc)
+        got = report_digests(td / "out_rc", REF_SWEEP_RC)
+        if rrc.failures or got != REF_SWEEP_RC:
+            raise AssertionError(f"reverse-complement sweep differs from the "
+                                 f"JAX sweep's: {got}, failures {rrc.failures}")
+        print(f"sweep rc: 12 accepted counts and report hashes equal the JAX "
+              f"sweep's, .r jobs accepting "
+              f"{sorted(a for k, (a, _) in got.items() if '.r.' in k)}")
+
+        t0 = time.perf_counter()
+        tallies = run_distributed(td / "s2k", td / "out2k_dist")
+        want = sum(a for a, _ in REF_SWEEP_2K.values())
+        got = report_digests(td / "out2k_dist", REF_SWEEP_2K)
+        print(f"sweep 2k, two processes: {time.perf_counter() - t0:.3f} s, "
+              f"tallies {tallies}")
+        if got != REF_SWEEP_2K or tallies != [want, want]:
+            raise AssertionError(f"two-process sweep: {got}, tallies "
+                                 f"{tallies}, want {want}")
+
+        traced = AllVsAllRunner(str(td / "out_traced"), Config(),
+                                device="cuda")
+        again, _ = warm("sweep", lambda: traced.run(samples))
+        if traced.failures or len(again) != 2 * n_pairs:
+            raise AssertionError(f"traced sweep: {len(again)} jobs, failures "
+                                 f"{traced.failures}")
+    return launches
+
+
 def main(argv) -> int:
     smi = phase_device()
     phase_build()
@@ -867,7 +1179,8 @@ def main(argv) -> int:
         phase_ab(*argv[1:3])
         return 0
     cases = phase_kernels()
-    paths = [phase_slice(), phase_long(cases), phase_long20k(cases)]
+    paths = [phase_slice(), phase_long(cases), phase_long20k(cases),
+             phase_sweep()]
     print(smi)
     kernels = []
     for name, lines in REPLACES.items():

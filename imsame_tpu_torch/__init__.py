@@ -17,6 +17,9 @@ Layout (mirrors imsame_tpu/):
   csrc/      hand-written CUDA kernels for sm_90a (H100)
   pipeline   single-device engine (TorchEngine)
   cli        reference-flag command line
+  revcomp    the reference's reverse-complement tool
+  orchestrator  all-vs-all sweep over a directory of samples
+  distributed   gloo process group for the sweep's --distributed runs
 
 This package imports torch and numpy, never jax or imsame_tpu.
 """

@@ -22,6 +22,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 
 import numpy as np
 
@@ -56,9 +57,19 @@ def build() -> str:
     return so
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def load():
-    """The loaded library with typed symbols, or None without a compiler."""
+    """The loaded library with typed symbols, or None without a compiler.
+    Built and loaded once per process: threads that ask together wait for
+    one build."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load():
     try:
         lib = ctypes.CDLL(build())
     except (OSError, subprocess.SubprocessError):

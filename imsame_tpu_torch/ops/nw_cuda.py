@@ -37,6 +37,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 
 import torch
@@ -116,8 +117,19 @@ def build() -> dict:
     return {"path": so, "seconds": time.perf_counter() - t0, "log": log}
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def _lib() -> ctypes.CDLL:
+    """The kernels' library, built and loaded once per process: threads
+    that reach the first launch together wait for one build (temp names
+    are unique per process only)."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()["path"])
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.nw_stats_launch.restype = i

@@ -873,19 +873,20 @@ class TorchEngine:
         )
 
     # ------------------------------------------------------------------
-    def _materialize_chains(self, records: List[AcceptedRead]) -> None:
-        """Produce traceback chains for accepted pairs by running the
-        backpointer kernel + traceback on exactly those pairs (the accept
-        path used the stats-only aligner, which writes no bp tensor) over
-        the last compare's device tables; all chunks are queued before the
-        first is read back, with one ``.cpu()`` per chunk.  Cross-checks
-        each pair's path stats against the stats aligner's: the two
-        kernels must agree on every accepted pair."""
-        todo = [rec for rec in records if rec.chain is None]
-        if not todo:
-            return
-        assert self._last_dev is not None, "render before compare"
-        d_qp, d_dp, d_qlen, d_dlen = self._last_dev
+    # Chain entries fetched with each render chunk's stats: chains are
+    # diagonal-run compressed, so max(n_steps) + 1 is typically tens of
+    # entries while the tensor is 2L wide.  A chunk whose chains exceed
+    # the prefix re-fetches a wider power-of-two slice at collect time.
+    _CHAIN_PREFIX = 64
+
+    def _render_dispatch_chains(self, todo: List[AcceptedRead], dev):
+        """Queue the render NW (backpointer kernel + traceback) over the
+        ``todo`` records without reading anything back: per chunk, its
+        pair indices, a [B, 3 + _CHAIN_PREFIX] int32 tensor of (length,
+        identities, n_steps, chain prefix) and the whole [B, 2L] chain.
+        _render_collect_chains reads them.  ``dev`` is a compare's
+        (d_qp, d_dp, d_qlen, d_dlen)."""
+        d_qp, d_dp, d_qlen, d_dlen = dev
         r_ids = np.array([rec.qread for rec in todo], np.int64)
         sids = np.array([rec.dbread for rec in todo], np.int64)
         qlens = np.zeros(int(r_ids.max()) + 1, np.int64)
@@ -899,14 +900,34 @@ class TorchEngine:
                 d_qp, d_dp, self._put(rpad), self._put(spad), d_qlen, d_dlen,
                 self.cfg.igap, self.cfg.egap, max_len=L,
             )
-            pending.append((chunk, torch.cat([
+            head = torch.cat([
                 torch.stack([res.length, res.identities, res.n_steps], 1),
-                res.chain,
-            ], dim=1)))
-        for chunk, packed in pending:
-            host = packed.cpu().numpy()
+                res.chain[:, : self._CHAIN_PREFIX],
+            ], dim=1)
+            pending.append((chunk, head, res.chain))
+        return pending
+
+    def _render_collect_chains(self, todo: List[AcceptedRead], pending) -> None:
+        """Read back the chunks queued by _render_dispatch_chains (one
+        ``.cpu()`` for every chunk's stats and prefix, one more per chunk
+        whose chains pass the prefix) and assign each record its chain.
+        Cross-checks each pair's path stats against the stats aligner's:
+        the two kernels must agree on every accepted pair."""
+        if not pending:
+            return
+        flat = torch.cat([head for _, head, _ in pending]).cpu().numpy()
+        row = 0
+        for chunk, head, chain in pending:
+            host = flat[row : row + head.shape[0]]
+            row += head.shape[0]
             lengths, idents, nsteps = host[:, 0], host[:, 1], host[:, 2]
             chains = host[:, 3:]
+            need = int(nsteps[: len(chunk)].max()) + 1
+            if need > self._CHAIN_PREFIX:
+                W = self._CHAIN_PREFIX
+                while W < need:
+                    W *= 2
+                chains = chain[:, :W].cpu().numpy()
             for b, i in enumerate(chunk):
                 rec = todo[i]
                 assert int(lengths[b]) == rec.length
@@ -914,14 +935,32 @@ class TorchEngine:
                 rec.n_steps = int(nsteps[b])
                 rec.chain = chains[b]
 
-    def render_report(self, q: SeqInfo, result: PipelineResult) -> bytes:
+    def _materialize_chains(self, records: List[AcceptedRead], dev=None) -> None:
+        """Produce traceback chains for accepted pairs by running the
+        backpointer kernel + traceback on exactly those pairs (the accept
+        path used the stats-only aligner, which writes no bp tensor).
+
+        ``dev`` is a snapshot of the compare's device tables (d_qp, d_dp,
+        d_qlen, d_dlen): pass it when the render runs after a later
+        compare on the same engine, since each compare replaces
+        self._last_dev."""
+        todo = [rec for rec in records if rec.chain is None]
+        if not todo:
+            return
+        dev = dev if dev is not None else self._last_dev
+        assert dev is not None, "render before compare"
+        self._render_collect_chains(todo, self._render_dispatch_chains(todo, dev))
+
+    def render_report(
+        self, q: SeqInfo, result: PipelineResult, dev=None
+    ) -> bytes:
         """Byte-identical -out file content (records in read order, matching
         the reference at n_threads=1).  The block emission runs in the
         native host library when available (batched backtrack + 60-col
         render, native/host.c imsame_render_blocks); the Python path below
-        is the bit-identical fallback.  Renders the last compare's result
-        (see _materialize_chains)."""
-        self._materialize_chains(result.records)
+        is the bit-identical fallback.  ``dev``: see _materialize_chains
+        (default: the last compare's tables)."""
+        self._materialize_chains(result.records, dev=dev)
         db = self.db
         recs = result.records
         if recs and native.lib is not None:

@@ -295,7 +295,8 @@ def test_native_source_is_the_ports_own():
 
 def test_port_imports_without_jax(tmp_path):
     """The port never imports jax or imsame_tpu: with both blocked it
-    imports and runs a tiny compare on the CPU."""
+    imports (the sweep's modules included) and runs a tiny compare on the
+    CPU."""
     qp, dp = make_pair(tmp_path, random.Random(9), n_query=6, n_db=6,
                        read_len=100)
     code = f"""
@@ -304,6 +305,7 @@ sys.modules["jax"] = None
 sys.modules["imsame_tpu"] = None
 from imsame_tpu_torch.io.fasta import read_fasta
 from imsame_tpu_torch.pipeline import TorchEngine
+from imsame_tpu_torch import distributed, orchestrator, revcomp
 eng = TorchEngine(read_fasta({str(dp)!r}), device="cpu")
 q = read_fasta({str(qp)!r})
 res = eng.compare(q)
