@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                      # the smoke test
     python3 chip_smoke.py --ab PARENT [DIR]    # kernel A/B, see phase_ab
+    python3 chip_smoke.py --config3            # config-3, 1M x 1M reads
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -77,15 +78,40 @@ Phases, in order; any failure raises and exits non-zero:
                 samples (gloo on localhost, one card), which must print
                 the same total.  A traced pass of the 20k sweep must also
                 finish its 12 jobs with no failure.
+  8. wide    -- config-3's workload (bench_config3.py synth, seed 99, 250 bp
+                reads, 90 % of the db reads 2 %-mutated query copies;
+                synth_config3) at N_WIDE = 2^20 + 2^15 reads a side, past
+                the packed formats' 2^20 reads, Config(first_window=32,
+                first_window_auto=False) (WIDE_CONFIG): (a) the whole db
+                side as the database, which takes the wide (pos, sid,
+                db_start) index (~258 M entries): compare and render of the
+                first 100,000 query reads must accept at least 85,500;
+                the first 2,000 query reads must give the JAX engine's
+                count and report hash (REF_WIDE_DB_2K); (b) the whole query
+                side, in the wide candidate format, against the first
+                2,000 db reads: its count and report hash must equal the
+                JAX engine's (REF_WIDE_QUERY).  Prints per part the engine
+                build, index entries, compare and render walls,
+                candidates, phases, stages and launches, and a traced warm
+                run of each.
 
 A long path that launches a kernel past L = 256 on more pairs than the
 card holds at once fails unless phase 3 held such a batch at that
 bucket.  Each path runs once more on the warm engine, traced by
 torch.profiler: a "profile" line gives that run's device-busy share and
 leading device work.  Each path's kernel launches are counted from 0 just
-before it and read just after.  The last two lines are a JSON object with
-each kernel's launches on those paths, error, times and bound, then
-{"ok": true, "device": ...}.
+before it and read just after.  The last three lines are a JSON object
+with each kernel's launches on those paths, error, times and bound, the
+card's name and power limit, then {"ok": true, "device": ...}.
+
+With --config3 it runs phases 1-2, then bench_config3.py's workload whole
+through the port (phase_config3): 1M x 1M reads of 250 bp written as
+FASTA and read back by the port's streaming reader, the engine on the db
+side, the query in 10 slices of 100,000 reads, slice 0 rendered; it must
+give CONFIG3.json's 901,542 accepts and 80,279,236-byte slice-0 report
+(exact semantics, not hardware), and prints its walls and the candidates
+and NW cells beside CONFIG3.json's; slices 0 (copies) and 9 (random
+reads) run once more, traced.  It is not part of the default run.
 
 With --ab PARENT [DIR] (PARENT another checkout, e.g. the parent commit
 unpacked by git archive into build/parent) it runs phases 1-2, builds
@@ -116,11 +142,12 @@ from imsame_tpu_torch import native
 from imsame_tpu_torch.config import Config
 from imsame_tpu_torch.constants import MAX_READ_SIZE
 from imsame_tpu_torch.io.fasta import (
-    SeqInfo, parse_fasta_bytes, read_fasta, revcomp_fasta_bytes,
+    SeqInfo, parse_fasta_bytes, read_fasta, read_fasta_stream,
+    revcomp_fasta_bytes,
 )
 from imsame_tpu_torch.ops import nw, nw_cuda, resolve
 from imsame_tpu_torch.orchestrator import AllVsAllRunner, list_samples, make_jobs
-from imsame_tpu_torch.pipeline import TorchEngine
+from imsame_tpu_torch.pipeline import PACKED_MAX_READS, TorchEngine
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from util_synth import mutate, random_read, write_fasta  # noqa: E402
@@ -201,6 +228,30 @@ REF_SWEEP_RC = {
         40, "50bfda2764e33754f497cdc3f5f03ee95c3c6bda01c66e9e03876bd6fd2cd4e0"),
 }
 RC_READS = 120  # reads per sample of the reverse-complement anchor
+# Config-3 (bench_config3.py): (read length, share of db reads that are
+# query copies, substitution rate, seed) of synth_config3, and its Config.
+CONFIG3_SHAPE = (250, 0.9, 0.02, 99)
+WIDE_CONFIG = dict(first_window=32, first_window_auto=False)
+N_WIDE = (1 << 20) + (1 << 15)  # reads a side of phase 8, past 2^20
+CONFIG3_READS = 1_000_000  # reads a side of the --config3 run
+CONFIG3_SLICE = 100_000  # query reads a compare (bench_config3.py slices)
+# CONFIG3.json: the JAX engine's accepts, slice-0 report bytes,
+# candidates and NW cells on the --config3 workload
+CONFIG3_ACCEPTED = 901_542
+CONFIG3_SLICE0_BYTES = 80_279_236
+CONFIG3_CANDIDATES = 1_215_418_321
+CONFIG3_NW_CELLS = 362_153_437_500
+# phase 8's query slice: bench_config3.py's 95 % of the db copies
+WIDE_SLICE_MIN_ACCEPTED = 85_500
+# (accepted, sha256 of the report) written by the JAX engine,
+# imsame_tpu.pipeline.TpuEngine(db, Config(mesh_shape=None, **WIDE_CONFIG))
+# on the CPU, on synth_config3(N_WIDE, *CONFIG3_SHAPE): the first 2,000
+# query reads against the whole database, and the whole query against
+# the first 2,000 database reads (tests/test_torch_scale.py wide_anchors).
+REF_WIDE_DB_2K = (
+    2000, "ad159533649da4c5d3097cdf2d64082c4295d8edc8048b0d03a626708c95feb5")
+REF_WIDE_QUERY = (
+    1855, "0e530d22a1564587f8e9bd9ae736925c7aa6fd3218639b642cc1657620ef9ef6")
 SWEEP_READS = 20000  # reads per sample of the sweep (bench.py sweep_bench)
 SUBPROCESS_TIMEOUT = 300  # seconds, each process of the two-process sweep
 L = 256
@@ -242,6 +293,23 @@ def synth_pair(n: int, read_len: int, match_frac: float, seed: int):
     )
     perm = rng.permutation(n)
     return q, db[perm]
+
+
+def synth_config3(n: int, read_len: int, match_frac: float, sub_rate: float,
+                  seed: int):
+    """bench_config3.py's workload: n random query reads; match_frac of
+    the db reads are copies of query reads with sub_rate substitutions, the
+    rest random; the db shuffled."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (n, read_len), dtype=np.uint8)
+    nm = int(n * match_frac)
+    db = q[:nm].copy()
+    mask = rng.random((nm, read_len)) < sub_rate
+    db[mask] = (db[mask] + rng.integers(1, 4, int(mask.sum()), dtype=np.uint8)) % 4
+    db = np.concatenate(
+        [db, rng.integers(0, 4, (n - nm, read_len), dtype=np.uint8)]
+    )
+    return q, db[rng.permutation(n)]
 
 
 def reads_to_seqinfo(reads) -> SeqInfo:
@@ -1172,16 +1240,183 @@ def phase_sweep() -> dict:
     return launches
 
 
+def check_anchor(label: str, res, report: bytes, want: tuple) -> None:
+    """The accepted count and report sha256 must equal the JAX engine's
+    `want` (accepted, sha256)."""
+    sha = hashlib.sha256(report).hexdigest()
+    print(f"{label}: accepted {res.accepted}, report sha256 {sha}")
+    if (res.accepted, sha) != tuple(want):
+        raise AssertionError(f"{label}: report differs from the JAX "
+                             f"engine's {want}")
+
+
+def wide_part(label: str, db: SeqInfo, q: SeqInfo, check, anchors=()) -> dict:
+    """One part of phase 8: builds TorchEngine(db, Config(WIDE_CONFIG)) on
+    the card, compares and renders q (prints the walls, candidates,
+    phases, stages and launches, then check(engine, result, report)
+    asserts), runs that compare and render once more traced by the
+    profiler, and holds each of `anchors`, (SeqInfo, (accepted, report
+    sha256)), to the JAX engine's result.  Returns the first run's
+    launches."""
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    eng = TorchEngine(db, Config(**WIDE_CONFIG), device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = eng.compare(q)
+    t2 = time.perf_counter()
+    report = eng.render_report(q, res)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = read_counts()
+    print(f"{label}: engine build {t1 - t0:.3f} s, index entries "
+          f"{eng.index.n_entries}, packed index {eng._packed_idx}, "
+          f"{q.n_seqs} query reads x {db.n_seqs} db reads, compare "
+          f"{t2 - t1:.3f} s, render {t3 - t2:.3f} s, accepted "
+          f"{res.accepted}, candidates {res.n_candidates}, nw_cells "
+          f"{res.nw_cells}, report {len(report)} B, launches {launches}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB")
+    print(f"{label} phases: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(res.timings.items())}))
+    print(f"{label} stages: " + json.dumps(eng.stage_stats))
+    check(eng, res, report)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"{label}: a kernel was not launched: {launches}")
+    res_w, t_c = warm(f"{label} compare", lambda: eng.compare(q))
+    report_w, t_r = warm(f"{label} render", lambda: eng.render_report(q, res_w))
+    print(f"{label} warm (profiled): compare {t_c:.3f} s, render {t_r:.3f} s")
+    if report_w != report:
+        raise AssertionError(f"{label}: a second compare gave another report")
+    for qa, want in anchors:
+        ra = eng.compare(qa)
+        check_anchor(f"{label} {qa.n_seqs} x {db.n_seqs}", ra,
+                     eng.render_report(qa, ra), want)
+    return launches
+
+
+def phase_wide() -> dict:
+    """Config-3's workload at N_WIDE reads a side, past the packed formats'
+    2^20 reads: (a) the whole db side as the database (the wide index)
+    against the first query slice of config-3's 100,000 reads, and the
+    first 2,000 query reads against the JAX anchor; (b) the whole query
+    side (the wide candidate format) against the first 2,000 db reads,
+    against the JAX anchor."""
+    t0 = time.perf_counter()
+    qc, dbc = synth_config3(N_WIDE, *CONFIG3_SHAPE)
+    q, db = reads_to_seqinfo(qc), reads_to_seqinfo(dbc)
+    del qc, dbc
+    print(f"wide: data {time.perf_counter() - t0:.3f} s, {q.total_len} + "
+          f"{db.total_len} bases")
+
+    def wide_db(eng, res, report):
+        if eng._packed_idx or eng.index.packed is not None:
+            raise AssertionError("wide-db: the engine kept the packed index")
+        if res.accepted < WIDE_SLICE_MIN_ACCEPTED:
+            raise AssertionError(f"wide-db: accepted {res.accepted} < "
+                                 f"{WIDE_SLICE_MIN_ACCEPTED}")
+
+    def wide_query(eng, res, report):
+        if res.n_query < PACKED_MAX_READS:
+            raise AssertionError("wide-query: the query is under 2^20 reads")
+        check_anchor("wide-query", res, report, REF_WIDE_QUERY)
+
+    la = wide_part("wide-db", db, q.slice_reads(0, CONFIG3_SLICE), wide_db,
+                   [(q.slice_reads(0, 2000), REF_WIDE_DB_2K)])
+    torch.cuda.empty_cache()
+    lb = wide_part("wide-query", db.slice_reads(0, 2000), q, wide_query)
+    return {k: la[k] + lb[k] for k in la}
+
+
+def phase_config3() -> dict:
+    """bench_config3.py's workload whole through the port: 1M x 1M reads
+    of 250 bp written as FASTA and read back by the streaming reader
+    (io/fasta.py read_fasta_stream, in 64 MiB chunks), the
+    engine on the db side, the query in 10 slices of 100,000 reads, slice
+    0 rendered.  Asserts CONFIG3.json's accepts and slice-0 report
+    bytes, then runs slices 0 and 9 once more, traced by the profiler."""
+    n = CONFIG3_READS
+    out = {}
+    t_all = time.perf_counter()
+    qm, dm = synth_config3(n, *CONFIG3_SHAPE)
+    chars = np.frombuffer(b"ACGT", np.uint8)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        for name, mat in (("q.fa", qm), ("db.fa", dm)):
+            write_fasta(Path(td) / name,
+                        (chars[r].tobytes().decode() for r in mat))
+        out["fasta_write_seconds"] = time.perf_counter() - t0
+        out["fasta_bytes_per_side"] = (Path(td) / "q.fa").stat().st_size
+        del qm, dm
+        # 259.9 MB a side, under read_fasta's 256 MiB streaming threshold:
+        # the streaming reader is called by name
+        t0 = time.perf_counter()
+        q = read_fasta_stream(str(Path(td) / "q.fa"))
+        db = read_fasta_stream(str(Path(td) / "db.fa"))
+        out["ingest_seconds"] = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    eng = TorchEngine(db, Config(**WIDE_CONFIG), device="cuda")
+    torch.cuda.synchronize()
+    out["index_seconds"] = time.perf_counter() - t0
+    out["index_entries"] = eng.index.n_entries
+    accepted = n_cands = nw_cells = 0
+    walls = []
+    t_align = time.perf_counter()
+    for s in range(n // CONFIG3_SLICE):
+        qs = q.slice_reads(s * CONFIG3_SLICE, (s + 1) * CONFIG3_SLICE)
+        t0 = time.perf_counter()
+        res = eng.compare(qs)
+        walls.append(time.perf_counter() - t0)
+        accepted += res.accepted
+        n_cands += res.n_candidates
+        nw_cells += res.nw_cells
+        print(f"config3 slice {s}: compare {walls[-1]:.3f} s, accepted "
+              f"{res.accepted}, candidates {res.n_candidates}, nw_cells "
+              f"{res.nw_cells}, stages " + json.dumps(eng.stage_stats))
+        if s == 0:
+            t0 = time.perf_counter()
+            out["report_bytes_slice0"] = len(eng.render_report(qs, res))
+            torch.cuda.synchronize()
+            out["render_slice0_seconds"] = time.perf_counter() - t0
+    out["align_seconds"] = (time.perf_counter() - t_align
+                            - out["render_slice0_seconds"])
+    out.update(slice_walls=walls, accepted=accepted, candidates=n_cands,
+               nw_cells=nw_cells, reads_per_s_align=n / out["align_seconds"],
+               e2e_seconds=time.perf_counter() - t_all,
+               launches=read_counts())
+    print("config3: " + json.dumps(out))
+    # the engine's phase timer sums over its compares: the 10 slices
+    print("config3 phases: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(res.timings.items())}))
+    print(f"config3: candidates {n_cands} (CONFIG3.json {CONFIG3_CANDIDATES})"
+          f", nw_cells {nw_cells} (CONFIG3.json {CONFIG3_NW_CELLS})")
+    if (accepted, out["report_bytes_slice0"]) != (
+            CONFIG3_ACCEPTED, CONFIG3_SLICE0_BYTES):
+        raise AssertionError(
+            f"config3: accepted {accepted}, slice-0 report "
+            f"{out['report_bytes_slice0']} B; CONFIG3.json has "
+            f"{CONFIG3_ACCEPTED} and {CONFIG3_SLICE0_BYTES} B")
+    # a slice of copies and the slice of random reads, again, traced
+    for s in (0, n // CONFIG3_SLICE - 1):
+        qs = q.slice_reads(s * CONFIG3_SLICE, (s + 1) * CONFIG3_SLICE)
+        warm(f"config3 slice {s} compare", lambda: eng.compare(qs))
+    return out
+
+
 def main(argv) -> int:
     smi = phase_device()
     phase_build()
     if argv[:1] == ["--ab"]:  # python3 chip_smoke.py --ab PARENT [OUT_DIR]
         phase_ab(*argv[1:3])
         return 0
+    if argv[:1] == ["--config3"]:
+        phase_config3()
+        return finish(smi)
     cases = phase_kernels()
     paths = [phase_slice(), phase_long(cases), phase_long20k(cases),
-             phase_sweep()]
-    print(smi)
+             phase_sweep(), phase_wide()]
     kernels = []
     for name, lines in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -1203,6 +1438,12 @@ def main(argv) -> int:
             "L": top["L"], "B": top["B"], "plain_B": top["plain_B"],
         })
     print(json.dumps({"kernels": kernels}))
+    return finish(smi)
+
+
+def finish(smi: str) -> int:
+    """Prints the card's name and power limit, then the device line."""
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,11 +5,14 @@ k-mer scan positions x posting-list hits -- running the ungapped
 extension + e-value gate per candidate (src/alignmentFunctions.c:118-199).
 Here the host enumerates the exact candidate list to gate (it owns the
 cheap stream tables: k-mer slots, bucket offsets, per-read ranks) and
-ships it in one of two encodings; the device maps index hits to (db read,
-row offset) with one gather from the engine-resident index words and runs
-the packed extension (ops/extend_packed.py), returning a pass bit and an
-exactness bit per candidate, packed 32 per int32 word as a [2, N/32]
-array (row 0 = pass, row 1 = exact; bit k of word w is candidate 32w+k).
+ships it in one of three encodings (segment words, two words, or the wide
+three-word format of queries of >= 2^20 reads); the device maps index hits
+to (db read, row offset) from the engine-resident index -- one gather from
+the packed index words, or three from the wide (pos, sid, db_start)
+triple -- and runs the packed extension (ops/extend_packed.py), returning
+a pass bit and an exactness bit per candidate, packed 32 per int32 word as
+a [2, N/32] array (row 0 = pass, row 1 = exact; bit k of word w is
+candidate 32w+k).
 """
 
 from __future__ import annotations
@@ -23,12 +26,19 @@ from .extend_packed import as_u32, extend_packed
 def gate_core(qp, dp, qlen, dlen, idx_tab, r, hit, qoff, thr, *, window: int):
     """Candidate -> (pass bool, exact bool).
 
-    ``idx_tab`` is the int32 array of (sid << 12) | doff index words (the
-    packed index format: n_db < 2^20 reads, db read length < 4096)."""
-    hit = hit.clamp(0, max(idx_tab.shape[0] - 1, 0))
-    w = idx_tab[hit]
-    s = (w >> 12) & 0xFFFFF  # arithmetic shift, then mask: sid < 2^20
-    doff = w & 0xFFF
+    ``idx_tab`` is either the int32 tensor of (sid << 12) | doff index
+    words (the packed index format: n_db < 2^20 reads, db read length <
+    4096) or the wide (idx_pos, idx_sid, db_start) int32 triple."""
+    if isinstance(idx_tab, torch.Tensor):
+        hit = hit.clamp(0, max(idx_tab.shape[0] - 1, 0))
+        w = idx_tab[hit]
+        s = (w >> 12) & 0xFFFFF  # arithmetic shift, then mask: sid < 2^20
+        doff = w & 0xFFF
+    else:
+        idx_pos, idx_sid, db_start = idx_tab
+        hit = hit.clamp(0, max(idx_pos.shape[0] - 1, 0))
+        s = idx_sid[hit]
+        doff = idx_pos[hit] - db_start[s]
     res = extend_packed(
         qp, dp, r, s, qoff, doff, qlen[r], dlen[s], thr, W=window
     )
@@ -51,7 +61,7 @@ def flat_gate_packed(
     dp: torch.Tensor,  # [n_db, WP] int32 packed db rows
     qlen: torch.Tensor,  # [n_q] int32
     dlen: torch.Tensor,  # [n_db] int32
-    idx_tab: torch.Tensor,  # [n_idx] int32 packed index words
+    idx_tab,  # packed index words, or (idx_pos, idx_sid, db_start) triple
     cand: torch.Tensor,  # [2, N] int32: row 0 index-hit row, row 1 the
     # (query read id << 12) | qoff word (bit-cast from uint32)
     thr_tab: torch.Tensor,  # [n_q] int32 per-READ raw-score threshold
@@ -138,3 +148,26 @@ def encode_seg_chunk(rids, qoffs, hits, size: int):
     rtab = rids[new_seg].astype(np.int32)
     rbase = (qoffs.astype(np.int64) - cs)[new_seg].astype(np.int32)
     return cand, rtab, rbase
+
+
+def flat_gate(
+    qp: torch.Tensor,  # [n_q, WP] int32 packed query rows
+    dp: torch.Tensor,  # [n_db, WP] int32 packed db rows
+    qlen: torch.Tensor,  # [n_q] int32
+    dlen: torch.Tensor,  # [n_db] int32
+    idx_tab,  # packed index words, or (idx_pos, idx_sid, db_start) triple
+    cand: torch.Tensor,  # [3, N] int32: index-hit row, query read id, qoff
+    thr_tab: torch.Tensor,  # [n_q] int32 per-READ raw-score threshold
+    *,
+    window: int,
+) -> torch.Tensor:
+    """Wide candidate format, for queries of >= 2^20 reads, whose read id
+    no longer shares a word with the k-mer offset: three int32 values per
+    candidate (N % 32 == 0).  The threshold is gathered from the per-read
+    table, as the other formats do.  Padding entries return garbage bits;
+    callers read only the bits of real candidates."""
+    hit, r, qoff = cand
+    passes, exact = gate_core(
+        qp, dp, qlen, dlen, idx_tab, r, hit, qoff, thr_tab[r], window=window
+    )
+    return pack_bits(passes, exact)

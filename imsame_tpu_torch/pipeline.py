@@ -37,9 +37,12 @@ stage reads its results back with one ``.cpu()``, which is where the host
 waits.  Reads up to the reference's MAX_READ_SIZE = 3000 bp run, padded
 to the length buckets of Config.length_buckets (128 .. 3072); a longer
 read aborts with the reference's ValueError once it reaches the gapped
-aligner, as in the JAX engine.  The packed index format (n_db < 2^20
-reads, n_query < 2^20 reads) is supported; the wide formats raise
-NotImplementedError.
+aligner, as in the JAX engine.  Samples of any read count run, in the
+JAX engine's formats: a database of < 2^20 reads keeps its index on the
+device as one (sid << 12) | doff word per entry, a larger one as the wide
+(pos, sid, db_start) triple; a query of < 2^20 reads ships its candidates
+segment-encoded or as two words each (read id and k-mer offset sharing
+one), a larger one in the wide three-word format (ops/candidates.py).
 
 Row-coordinate bound reduction (used by the packed extension): the
 reference clamps the extension walk with four checks -- array end, and the
@@ -67,7 +70,9 @@ from .index.kmer import KmerIndex, build_index, rolling_keys
 from .io.fasta import CODE_TO_CHAR, SeqInfo
 from .io.reconstruct import backtrack_from_chain
 from .io.report import format_record, render_alignment
-from .ops.candidates import encode_seg_chunk, flat_gate_packed, flat_gate_seg
+from .ops.candidates import (
+    encode_seg_chunk, flat_gate, flat_gate_packed, flat_gate_seg,
+)
 from .ops.extend import raw_score_threshold
 from .ops.extend_packed import pack_stream, rows_from_stream
 from .ops.resolve import nw_stats_rows, nw_traceback_rows
@@ -89,6 +94,10 @@ SMALL_TIER_MIN_CANDIDATES = 2_000_000
 GATE_MAX_ELEMENTS = 1 << 28
 # Segment-encoded gate words hold the index row in 25 bits.
 SEG_MAX_INDEX_ROWS = 1 << 25
+# Packed formats hold a read id in 20 bits: a database of fewer reads
+# keeps one word per index entry, a query of fewer reads shares one word
+# between read id and k-mer offset; larger samples take the wide formats.
+PACKED_MAX_READS = 1 << 20
 
 
 def gate_chunk_sizes(chunks, window: int) -> list:
@@ -189,30 +198,35 @@ class TorchEngine:
         self.device = torch.device(device)
         self.timer = PhaseTimer()
         self.db_read_lens = db.read_lens()
+        max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
         if db.n_seqs:
             # a db read past the largest length bucket aborts here with the
             # reference's error, as in the JAX engine
-            self._nw_bucket(int(self.db_read_lens.max()))
-        if db.n_seqs >= (1 << 20):
-            raise NotImplementedError(
-                "databases of >= 2^20 reads need the wide index format "
-                "(ROADMAP Queue 1: scale blocks)"
-            )
+            self._nw_bucket(max_dlen)
         with self.timer.phase("index_build"):
             # A prebuilt index (load_index / index_from_arrays) skips the
             # build; the reference rebuilds its dictionary from FASTA every
             # run (src/IMSAME.c:196-289).
             self.index: KmerIndex = index if index is not None else build_index(db)
         # One-word index payload (sid << 12 | doff): one gather per
-        # candidate in the gate.
-        if self.index.packed is not None:
-            words = self.index.packed.view(np.int32)
+        # candidate in the gate.  Past it, the wide (pos, sid, db_start)
+        # triple, as in the JAX engine.
+        self._packed_idx = db.n_seqs < PACKED_MAX_READS and max_dlen < 4096
+        if not self._packed_idx:
+            self._d_idx_tab = (
+                self._put(np.asarray(self.index.pos, np.int32)),
+                self._put(np.asarray(self.index.sid, np.int32)),
+                self._put(np.asarray(db.start, np.int32)),
+            )
         else:
-            sid = np.asarray(self.index.sid, np.int64)
-            doff = np.asarray(self.index.pos, np.int64) - db.start[sid]
-            words = ((sid.astype(np.uint32) << np.uint32(12))
-                     | doff.astype(np.uint32)).view(np.int32)
-        self._d_idx_tab = self._put(words)
+            if self.index.packed is not None:
+                words = self.index.packed.view(np.int32)
+            else:
+                sid = np.asarray(self.index.sid, np.int64)
+                doff = np.asarray(self.index.pos, np.int64) - db.start[sid]
+                words = ((sid.astype(np.uint32) << np.uint32(12))
+                         | doff.astype(np.uint32)).view(np.int32)
+            self._d_idx_tab = self._put(words)
         self._d_dlen = self._put(np.asarray(self.db_read_lens, np.int32))
         self._dp_cache: Dict[int, torch.Tensor] = {}
         self._nw_cells = 0
@@ -420,25 +434,32 @@ class TorchEngine:
         return out
 
     # ------------------------------------------------------------------
-    def _gate_chunks(self, hits, rq, d_thr, dev, window):
+    def _gate_chunks(self, rids, hits, qoffs, d_thr, dev, window):
         """Gate candidates and wait for the bits: (passes, exact) bools."""
-        pending = self._gate_chunks_dispatch(hits, rq, d_thr, dev, window)
+        pending = self._gate_chunks_dispatch(
+            rids, hits, qoffs, d_thr, dev, window
+        )
         return self._gate_chunks_fetch(pending, len(hits))
 
-    def _gate_chunks_dispatch(self, hits, rq, d_thr, dev, window):
+    def _gate_chunks_dispatch(self, rids, hits, qoffs, d_thr, dev, window):
         """Queue the gate over candidate chunks and return the pending
         list WITHOUT waiting, so callers overlap the gate's device time
         with other work -- _gate_chunks_fetch collects the bits later.
 
-        ``hits`` are index rows, ``rq`` the uint32 (read << 12) | qoff
-        words.  Each chunk is segment-encoded (ops/candidates.py
-        flat_gate_seg: 4 B/candidate + 8 B/segment) when the index rows
-        fit its 25-bit hit field, else shipped as two words per candidate
-        (flat_gate_packed); both give the same bits."""
+        ``rids`` are query read ids, ``hits`` index rows, ``qoffs`` k-mer
+        end offsets (int32 each).  The format follows the JAX engine's
+        rules: a query of >= 2^20 reads ships three words per candidate
+        (ops/candidates.py flat_gate); a smaller one is segment-encoded
+        (flat_gate_seg: 4 B/candidate + 8 B/segment) when the index is
+        the packed one and its rows fit the 25-bit hit field, else ships
+        two words per candidate, read id and qoff sharing one
+        (flat_gate_packed).  Every format gives the same bits."""
         d_qp, d_dp, d_qlen, d_dlen = dev
         N = len(hits)
         sizes = gate_chunk_sizes(self.cfg.gate_chunks, window)
-        seg = self._d_idx_tab.shape[0] <= SEG_MAX_INDEX_ROWS
+        wide = d_thr.shape[0] >= PACKED_MAX_READS
+        seg = (not wide and self._packed_idx
+               and self.index.n_entries <= SEG_MAX_INDEX_ROWS)
         pending = []
         # gate.dispatch / gate.fetch are sub-spans of resolve.extend.
         t_disp0 = time.perf_counter()
@@ -455,17 +476,26 @@ class TorchEngine:
             take = min(rem, size)
             n_pad = -(-take // 32) * 32  # bits pack 32 per word
             sl = slice(pos, pos + take)
-            if seg:
-                rids_c = (rq[sl] >> np.uint32(12)).astype(np.int32)
-                qoffs_c = (rq[sl] & np.uint32(0xFFF)).astype(np.int32)
+            if wide:
+                cand = np.zeros((3, n_pad), np.int32)
+                cand[0, :take] = hits[sl]
+                cand[1, :take] = rids[sl]
+                cand[2, :take] = qoffs[sl]
+                bits = flat_gate(
+                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                    self._put(cand), d_thr, window=window,
+                )
+            elif seg:
                 # segments <= candidates, so n_pad slots never overflow
-                nat = native.seg_encode(rids_c, qoffs_c, hits[sl], n_pad, n_pad)
+                nat = native.seg_encode(
+                    rids[sl], qoffs[sl], hits[sl], n_pad, n_pad
+                )
                 if nat is not None:
                     cand1, rt, rb, nseg = nat
                     rt, rb = rt[:nseg], rb[:nseg]
                 else:
                     cand1, rt, rb = encode_seg_chunk(
-                        rids_c, qoffs_c, hits[sl], n_pad
+                        rids[sl], qoffs[sl], hits[sl], n_pad
                     )
                 bits = flat_gate_seg(
                     d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
@@ -475,7 +505,10 @@ class TorchEngine:
             else:
                 cand = np.zeros((2, n_pad), np.int32)
                 cand[0, :take] = hits[sl]
-                cand[1, :take] = rq[sl].view(np.int32)
+                cand[1, :take] = (
+                    (rids[sl].astype(np.uint32) << np.uint32(12))
+                    | qoffs[sl].astype(np.uint32)
+                ).view(np.int32)
                 bits = flat_gate_packed(
                     d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
                     self._put(cand), d_thr, window=window,
@@ -582,11 +615,6 @@ class TorchEngine:
         self._n_cands = 0
 
         n = q.n_seqs
-        if n >= (1 << 20):
-            raise NotImplementedError(
-                "queries of >= 2^20 reads need the wide candidate format "
-                "(ROADMAP Queue 1: scale blocks)"
-            )
         qlens = q.read_lens() if n else np.empty(0, np.int64)
         thr = raw_score_threshold(qlens, db.total_len, cfg.min_e_value)
 
@@ -701,11 +729,10 @@ class TorchEngine:
                         and len(rids) > SMALL_TIER_MIN_CANDIDATES)
                 )
                 w1 = w_small if use_small else window
-                rq = (rids.astype(np.uint32) << np.uint32(12)) | qoffs.astype(
-                    np.uint32
-                )
                 with self.timer.phase("resolve.extend"):
-                    pending = self._gate_chunks_dispatch(hits, rq, d_thr, dev, w1)
+                    pending = self._gate_chunks_dispatch(
+                        rids, hits, qoffs, d_thr, dev, w1
+                    )
 
                 def finish():
                     with self.timer.phase("resolve.extend"):
@@ -716,7 +743,8 @@ class TorchEngine:
                             esc = np.flatnonzero(~exact)
                             if len(esc):
                                 p2, _ = self._gate_chunks(
-                                    hits[esc], rq[esc], d_thr, dev, window
+                                    rids[esc], hits[esc], qoffs[esc], d_thr,
+                                    dev, window,
                                 )
                                 passes[esc] = p2
                     pidx = np.flatnonzero(passes)
