@@ -3,8 +3,10 @@
     python3 chip_smoke.py                      # the smoke test
     python3 chip_smoke.py --ab PARENT [DIR]    # kernel A/B, see phase_ab
     python3 chip_smoke.py --config3            # config-3, 1M x 1M reads
+    python3 chip_smoke.py --config3 --gate-enum  # and with enumeration
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order but for 9, which runs right after 6 (it reuses 4-6's
+engines, then frees them before 7); any failure raises and exits non-zero:
 
   1. device  -- requires torch.cuda; prints the card's name and power limit
                 (nvidia-smi), its SMs and max SM clock, and the torch /
@@ -94,6 +96,20 @@ Phases, in order; any failure raises and exits non-zero:
                 build, index entries, compare and render walls,
                 candidates, phases, stages and launches, and a traced warm
                 run of each.
+  9. enum    -- device candidate enumeration, Config(gate_enum=True), on
+                the workloads of phases 4-6, each engine on its host-gate
+                engine's index: the 20k (10,005 accepts), the long 512
+                block (compare and render) and the long 20k (10,000 own
+                copies) must give the host gate's pairs, candidates, NW
+                cells and stage stats, and the 2k and long reports the JAX
+                hashes; enum_candidates over the 20k's stage-2 window must
+                equal the host build_flat's triples on the card.  Then the
+                20k and the long 20k compare in turns on warm engines
+                (host, enum, enum, host), each run's wall, gate phases and
+                peak device memory printed, and a traced run of each
+                enumerated compare.  Phase 8's paths are outside the
+                enumeration's rules (the wide index; 2^21 padded query
+                rows) and are skipped.
 
 A long path that launches a kernel past L = 256 on more pairs than the
 card holds at once fails unless phase 3 held such a batch at that
@@ -109,9 +125,12 @@ through the port (phase_config3): 1M x 1M reads of 250 bp written as
 FASTA and read back by the port's streaming reader, the engine on the db
 side, the query in 10 slices of 100,000 reads, slice 0 rendered; it must
 give CONFIG3.json's 901,542 accepts and 80,279,236-byte slice-0 report
-(exact semantics, not hardware), and prints its walls and the candidates
-and NW cells beside CONFIG3.json's; slices 0 (copies) and 9 (random
-reads) run once more, traced.  It is not part of the default run.
+(exact semantics, not hardware) and its candidates and NW cells, and
+prints its walls; slices 0 (copies) and 9 (random reads) run once more,
+traced.  With --config3 --gate-enum an engine with device candidate
+enumeration on the same index then runs the same 10 compares and the
+same checks, prints its align time and phase sums beside the host
+gate's, and runs the traced slices.  Neither is part of the default run.
 
 With --ab PARENT [DIR] (PARENT another checkout, e.g. the parent commit
 unpacked by git archive into build/parent) it runs phases 1-2, builds
@@ -145,9 +164,9 @@ from imsame_tpu_torch.io.fasta import (
     SeqInfo, parse_fasta_bytes, read_fasta, read_fasta_stream,
     revcomp_fasta_bytes,
 )
-from imsame_tpu_torch.ops import nw, nw_cuda, resolve
+from imsame_tpu_torch.ops import enum_gate, nw, nw_cuda, resolve
 from imsame_tpu_torch.orchestrator import AllVsAllRunner, list_samples, make_jobs
-from imsame_tpu_torch.pipeline import PACKED_MAX_READS, TorchEngine
+from imsame_tpu_torch.pipeline import PACKED_MAX_READS, TorchEngine, build_flat
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from util_synth import mutate, random_read, write_fasta  # noqa: E402
@@ -817,7 +836,9 @@ def read_counts() -> dict:
             "nw_forward": nw_cuda.nw_forward.launches}
 
 
-def phase_slice() -> dict:
+def phase_slice(keep: dict) -> dict:
+    """The 20k x 20k compare and render, and the 2k report hash; leaves
+    its query, engine, result and stages in keep["20k"] for phase 9."""
     qc, dbc = synth_pair(20000, 250, 0.5, seed=12345)
     q, db = reads_to_seqinfo(qc), reads_to_seqinfo(dbc)
     zero_counts()
@@ -837,6 +858,9 @@ def phase_slice() -> dict:
     print("20k phases: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(res.timings.items())}))
     print("20k stages: " + json.dumps(eng.stage_stats))
+    q2 = reads_to_seqinfo(qc[:2000])
+    keep["20k"] = dict(q=q, q2=q2, eng=eng, res=res,
+                       stages=dict(eng.stage_stats))
     if res.accepted != ACCEPTED_20K:
         raise AssertionError(f"20k accepted {res.accepted} != {ACCEPTED_20K}")
     if min(launches.values()) < 1:
@@ -851,7 +875,6 @@ def phase_slice() -> dict:
     if report_w != report:
         raise AssertionError("a second compare gave another report")
 
-    q2 = reads_to_seqinfo(qc[:2000])
     res2 = eng.compare(q2)
     sha = hashlib.sha256(eng.render_report(q2, res2)).hexdigest()
     print(f"2k: accepted {res2.accepted}, report sha256 {sha}")
@@ -904,8 +927,9 @@ def record_shapes(shapes: dict):
     return lambda: [setattr(resolve, n, f) for n, f in saved.items()]
 
 
-def phase_long(cases: list) -> dict:
-    """bench.py longread_bench's workload, compare and render."""
+def phase_long(cases: list, keep: dict) -> dict:
+    """bench.py longread_bench's workload, compare and render; leaves its
+    query, engine and result in keep["long"] for phase 9."""
     rng = random.Random(4242)
     nq = 512
     q_reads = [random_read(rng, rng.randint(300, 3000)) for _ in range(nq)]
@@ -944,6 +968,7 @@ def phase_long(cases: list) -> dict:
     print("long phases: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(res.timings.items())}))
     print("long stages: " + json.dumps(eng.stage_stats))
+    keep["long"] = dict(q=q, eng=eng, res=res, stages=dict(eng.stage_stats))
     print_shapes("long", shapes)
     assert_checked(shapes, cases)
     res_w, t_c = warm("long compare", lambda: eng.compare(q))
@@ -976,7 +1001,9 @@ def long_pair_np(n: int, seed: int):
     return q, [db[k] for k in perm], perm
 
 
-def phase_long20k(cases: list) -> dict:
+def phase_long20k(cases: list, keep: dict) -> dict:
+    """The long 20k compare; leaves its query, engine, result and the
+    copies' permutation in keep["long20k"] for phase 9."""
     t0 = time.perf_counter()
     qr, dbr, perm = long_pair_np(20000, seed=2024)
     q, db = reads_to_seqinfo(qr), reads_to_seqinfo(dbr)
@@ -1001,6 +1028,8 @@ def phase_long20k(cases: list) -> dict:
     print("long20k phases: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(res.timings.items())}))
     print("long20k stages: " + json.dumps(eng.stage_stats))
+    keep["long20k"] = dict(q=q, eng=eng, res=res, perm=perm,
+                           stages=dict(eng.stage_stats))
     print_shapes("long20k", shapes)
     assert_checked(shapes, cases)
     res_w, t_c = warm("long20k compare", lambda: eng.compare(q))
@@ -1329,13 +1358,197 @@ def phase_wide() -> dict:
     return {k: la[k] + lb[k] for k in la}
 
 
-def phase_config3() -> dict:
+ENUM_PHASES = ("gate.build", "gate.enum", "gate.dispatch", "gate.fetch",
+               "resolve.extend")
+
+
+def enum_engine(host: TorchEngine) -> TorchEngine:
+    """An engine with device candidate enumeration on a host-gate
+    engine's database and index."""
+    eng = TorchEngine(host.db, Config(gate_enum=True), index=host.index,
+                      device="cuda")
+    if not eng._use_enum:
+        raise AssertionError("the enumerating engine took the host gate")
+    return eng
+
+
+def timed_compare(eng: TorchEngine, q: SeqInfo):
+    """(result, wall s, this compare's phase seconds, peak device GiB) of
+    one compare: the engine's phase timer sums over its compares."""
+    before = dict(eng.timer.items())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eng.compare(q)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phases = {k: v - before.get(k, 0.0) for k, v in eng.timer.items()}
+    return res, wall, phases, torch.cuda.max_memory_allocated() / 2**30
+
+
+def print_run(label: str, res, wall: float, phases: dict, peak: float):
+    print(f"{label}: compare {wall:.3f} s, accepted {res.accepted}, "
+          f"candidates {res.n_candidates}, peak device memory {peak:.2f} GiB"
+          ", " + ", ".join(f"{k} {phases.get(k, 0.0):.4f}"
+                           for k in ENUM_PHASES))
+
+
+def same_as_host(label: str, res, eng, want) -> None:
+    """The enumerating compare's pairs, candidates, NW cells and stage
+    stats must equal the host-gate compare's (want: its result and
+    stages)."""
+    hres, stages = want["res"], want["stages"]
+    got = (res.pairs == hres.pairs, res.n_candidates == hres.n_candidates,
+           res.nw_cells == hres.nw_cells, eng.stage_stats == stages)
+    print(f"{label}: pairs, candidates, nw_cells and stages equal the host "
+          f"gate's: {all(got)} ({res.n_candidates} candidates, stages "
+          + json.dumps(eng.stage_stats) + ")")
+    if not all(got):
+        raise AssertionError(f"{label}: differs from the host gate {got}")
+
+
+def ab_runs(label: str, host: TorchEngine, eng: TorchEngine, q: SeqInfo):
+    """Warm compares in turns (host, enum, enum, host); prints each run's
+    wall, gate phases and peak device memory, and the means."""
+    walls = {"host": [], "enum": []}
+    for who, e in (("host", host), ("enum", eng), ("enum", eng),
+                   ("host", host)):
+        res, wall, phases, peak = timed_compare(e, q)
+        walls[who].append(wall)
+        print_run(f"ab {label} {who}", res, wall, phases, peak)
+    h, e = (sum(walls[k]) / len(walls[k]) for k in ("host", "enum"))
+    print(f"ab {label}: host {h:.3f} s, enum {e:.3f} s, enum/host "
+          f"{e / h:.3f}")
+
+
+def triples_check(eng: TorchEngine, q: SeqInfo) -> None:
+    """On the card: enum_candidates over stage 2's whole rank window
+    [F, N_r) of every read equals the host build_flat's triples."""
+    stream = eng._kmer_stream(q)
+    C_off = stream[5]
+    N_r = C_off[1:] - C_off[:-1]
+    F = eng.first_window()
+    reads = np.flatnonzero(N_r > F)
+    frm = np.zeros(q.n_seqs, np.int64)
+    to = np.zeros(q.n_seqs, np.int64)
+    frm[reads], to[reads] = F, N_r[reads]
+    host = build_flat(stream, q.start.astype(np.int64), reads, frm[reads],
+                      to[reads])
+    N = len(host[0])
+    dev = eng._last_dev
+    lo_g, cnt_g, Rcum, d_hasb = eng._enum_prepare(q, dev)
+    scum, start_off = enum_gate.enum_select_prefix(
+        cnt_g, Rcum, *to_cuda(frm.astype(np.int32), to.astype(np.int32)))
+    got = enum_gate.enum_candidates(
+        lo_g, scum, start_off, d_hasb, 0, chunk=-(-N // 32) * 32,
+        row_len=dev[0].shape[1] * 16)
+    same = all(np.array_equal(g[:N].cpu().numpy(), h)
+               for g, h in zip(got, host))
+    print(f"enum 20k triples: {N} candidates of stage 2's window [{F}, N_r)"
+          f" of {len(reads)} reads, on the card equal to build_flat's: {same}")
+    if not same:
+        raise AssertionError("enum_candidates differs from build_flat")
+
+
+def phase_enum(cases: list, keep: dict) -> dict:
+    """Device candidate enumeration, Config(gate_enum=True), on the
+    workloads of phases 4-6 with their host-gate engines' indexes: the
+    same results as the host gate (and the JAX hashes), the candidate
+    triples on the card, then host and enumeration in turns on warm
+    engines, and a traced run of each enumerated compare."""
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count():
+        for k, v in read_counts().items():
+            launches[k] += v
+
+    # 20k x 20k, and its 2k report; each workload leaves keep once used,
+    # so a later one's peak device memory counts no earlier engine
+    w = keep.pop("20k")
+    q, host = w["q"], w["eng"]
+    eng = enum_engine(host)
+    zero_counts()
+    res, wall, phases, peak = timed_compare(eng, q)
+    count()
+    print_run("enum 20k", res, wall, phases, peak)
+    same_as_host("enum 20k", res, eng, w)
+    if res.accepted != ACCEPTED_20K:
+        raise AssertionError(f"enum 20k accepted {res.accepted}")
+    triples_check(eng, q)
+    zero_counts()
+    res2 = eng.compare(w["q2"])
+    sha = hashlib.sha256(eng.render_report(w["q2"], res2)).hexdigest()
+    count()
+    print(f"enum 2k: accepted {res2.accepted}, report sha256 {sha}")
+    if res2.accepted != REF_2K_ACCEPTED or sha != REF_2K_SHA256:
+        raise AssertionError("enum 2k report differs from the JAX engine's")
+    ab_runs("20k", host, eng, q)
+    warm("enum 20k compare", lambda: eng.compare(q))
+
+    # the long 512 block, compare and render
+    w = keep.pop("long")
+    q, host = w["q"], w["eng"]
+    eng = enum_engine(host)
+    shapes = {}
+    restore = record_shapes(shapes)
+    try:
+        zero_counts()
+        res, wall, phases, peak = timed_compare(eng, q)
+        report = eng.render_report(q, res)
+        count()
+    finally:
+        restore()
+    sha = hashlib.sha256(report).hexdigest()
+    print_run("enum long", res, wall, phases, peak)
+    print(f"enum long: accepted {res.accepted}, report sha256 {sha}")
+    same_as_host("enum long", res, eng, w)
+    assert_checked(shapes, cases)
+    if res.accepted != REF_LONG_ACCEPTED or sha != REF_LONG_SHA256:
+        raise AssertionError("enum long report differs from the JAX engine's")
+    warm("enum long compare", lambda: eng.compare(q))
+
+    # the long 20k compare
+    w = keep.pop("long20k")
+    q, host, perm = w["q"], w["eng"], w["perm"]
+    eng = enum_engine(host)
+    shapes = {}
+    restore = record_shapes(shapes)
+    try:
+        zero_counts()
+        res, wall, phases, peak = timed_compare(eng, q)
+        count()
+    finally:
+        restore()
+    print_run("enum long20k", res, wall, phases, peak)
+    same_as_host("enum long20k", res, eng, w)
+    assert_checked(shapes, cases)
+    nm = q.n_seqs // 2
+    own = sum(perm[s] == r and r < nm for r, s in res.pairs)
+    print(f"enum long20k: {own} accepted pairs are a query read and its copy")
+    if res.accepted != nm or own != nm:
+        raise AssertionError(f"enum long20k accepted {res.accepted}, {own} "
+                             "own copies")
+    ab_runs("long20k", host, eng, q)
+    warm("enum long20k compare", lambda: eng.compare(q))
+    print("enum wide-db, wide-query: skipped: enumeration needs the packed "
+          "index (wide-db has the wide one) and at most ENUM_MAX_ROWS "
+          "padded query rows (wide-query has 2^21)")
+    print(f"enum launches {launches}")
+    if launches["nw_stats"] < 1 or launches["nw_forward"] < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+
+def phase_config3(gate_enum: bool = False) -> dict:
     """bench_config3.py's workload whole through the port: 1M x 1M reads
     of 250 bp written as FASTA and read back by the streaming reader
-    (io/fasta.py read_fasta_stream, in 64 MiB chunks), the
-    engine on the db side, the query in 10 slices of 100,000 reads, slice
-    0 rendered.  Asserts CONFIG3.json's accepts and slice-0 report
-    bytes, then runs slices 0 and 9 once more, traced by the profiler."""
+    (io/fasta.py read_fasta_stream, in 64 MiB chunks), the engine on the
+    db side, the query in 10 slices of 100,000 reads, slice 0 rendered
+    (config3_align).  With gate_enum an engine with device candidate
+    enumeration on the same index then aligns the same slices, and its
+    align time and phase sums print beside the host gate's.  Then slices
+    0 and 9 run once more, traced by the profiler (on the enumerating
+    engine with gate_enum)."""
     n = CONFIG3_READS
     out = {}
     t_all = time.perf_counter()
@@ -1361,6 +1574,39 @@ def phase_config3() -> dict:
     torch.cuda.synchronize()
     out["index_seconds"] = time.perf_counter() - t0
     out["index_entries"] = eng.index.n_entries
+    out.update(config3_align("config3", eng, q))
+    out["e2e_seconds"] = time.perf_counter() - t_all
+    print("config3: " + json.dumps(out))
+    if gate_enum:
+        index = eng.index
+        del eng
+        torch.cuda.empty_cache()
+        zero_counts()
+        eng = TorchEngine(db, Config(**WIDE_CONFIG, gate_enum=True),
+                          index=index, device="cuda")
+        if not eng._use_enum:
+            raise AssertionError("config3: the enumerating engine took the "
+                                 "host gate")
+        enum = config3_align("config3 enum", eng, q)
+        print("config3 enum: " + json.dumps(enum))
+        print(f"config3 align: host gate {out['align_seconds']:.3f} s, "
+              f"enumeration {enum['align_seconds']:.3f} s, enum/host "
+              f"{enum['align_seconds'] / out['align_seconds']:.3f}")
+    # a slice of copies and the slice of random reads, again, traced
+    for s in (0, n // CONFIG3_SLICE - 1):
+        qs = q.slice_reads(s * CONFIG3_SLICE, (s + 1) * CONFIG3_SLICE)
+        warm(f"config3{' enum' if gate_enum else ''} slice {s} compare",
+             lambda: eng.compare(qs))
+    return out
+
+
+def config3_align(label: str, eng: TorchEngine, q: SeqInfo) -> dict:
+    """Config-3's 10 compares of 100,000 query reads on `eng`, slice 0
+    rendered; prints each slice and the engine's phase sums, and asserts
+    CONFIG3.json's accepts, slice-0 report bytes, candidates and NW
+    cells."""
+    n = q.n_seqs
+    out = {}
     accepted = n_cands = nw_cells = 0
     walls = []
     t_align = time.perf_counter()
@@ -1372,7 +1618,7 @@ def phase_config3() -> dict:
         accepted += res.accepted
         n_cands += res.n_candidates
         nw_cells += res.nw_cells
-        print(f"config3 slice {s}: compare {walls[-1]:.3f} s, accepted "
+        print(f"{label} slice {s}: compare {walls[-1]:.3f} s, accepted "
               f"{res.accepted}, candidates {res.n_candidates}, nw_cells "
               f"{res.nw_cells}, stages " + json.dumps(eng.stage_stats))
         if s == 0:
@@ -1384,24 +1630,19 @@ def phase_config3() -> dict:
                             - out["render_slice0_seconds"])
     out.update(slice_walls=walls, accepted=accepted, candidates=n_cands,
                nw_cells=nw_cells, reads_per_s_align=n / out["align_seconds"],
-               e2e_seconds=time.perf_counter() - t_all,
                launches=read_counts())
-    print("config3: " + json.dumps(out))
     # the engine's phase timer sums over its compares: the 10 slices
-    print("config3 phases: " + json.dumps(
-        {k: round(v, 4) for k, v in sorted(res.timings.items())}))
-    print(f"config3: candidates {n_cands} (CONFIG3.json {CONFIG3_CANDIDATES})"
+    print(f"{label} phases: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(eng.timer.items())}))
+    print(f"{label}: candidates {n_cands} (CONFIG3.json {CONFIG3_CANDIDATES})"
           f", nw_cells {nw_cells} (CONFIG3.json {CONFIG3_NW_CELLS})")
-    if (accepted, out["report_bytes_slice0"]) != (
-            CONFIG3_ACCEPTED, CONFIG3_SLICE0_BYTES):
-        raise AssertionError(
-            f"config3: accepted {accepted}, slice-0 report "
-            f"{out['report_bytes_slice0']} B; CONFIG3.json has "
-            f"{CONFIG3_ACCEPTED} and {CONFIG3_SLICE0_BYTES} B")
-    # a slice of copies and the slice of random reads, again, traced
-    for s in (0, n // CONFIG3_SLICE - 1):
-        qs = q.slice_reads(s * CONFIG3_SLICE, (s + 1) * CONFIG3_SLICE)
-        warm(f"config3 slice {s} compare", lambda: eng.compare(qs))
+    want = (CONFIG3_ACCEPTED, CONFIG3_SLICE0_BYTES, CONFIG3_CANDIDATES,
+            CONFIG3_NW_CELLS)
+    got = (accepted, out["report_bytes_slice0"], n_cands, nw_cells)
+    if got != want:
+        raise AssertionError(f"{label}: accepted, slice-0 report bytes, "
+                             f"candidates, NW cells {got}; CONFIG3.json has "
+                             f"{want}")
     return out
 
 
@@ -1411,12 +1652,17 @@ def main(argv) -> int:
     if argv[:1] == ["--ab"]:  # python3 chip_smoke.py --ab PARENT [OUT_DIR]
         phase_ab(*argv[1:3])
         return 0
-    if argv[:1] == ["--config3"]:
-        phase_config3()
+    if argv[:1] == ["--config3"]:  # [--gate-enum]
+        phase_config3(gate_enum=argv[1:2] == ["--gate-enum"])
         return finish(smi)
     cases = phase_kernels()
-    paths = [phase_slice(), phase_long(cases), phase_long20k(cases),
-             phase_sweep(), phase_wide()]
+    keep = {}  # phases 4-6's workloads and engines, for phase 9
+    paths = [phase_slice(keep), phase_long(cases, keep),
+             phase_long20k(cases, keep), phase_enum(cases, keep)]
+    # phase 9 took the engines out of keep; phases 7-8 read their peak
+    # device memory with nothing of phases 4-6 alive
+    torch.cuda.empty_cache()
+    paths += [phase_sweep(), phase_wide()]
     kernels = []
     for name, lines in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -69,6 +69,17 @@ class Config:
     # len).  The CUDA kernels are instantiated for exactly these
     # (ops/nw_cuda.py LENGTHS); 3072 covers MAX_READ_SIZE.
     length_buckets: tuple = (128, 256, 512, 1024, 2048, 3072)
+    # Device-side candidate enumeration (ops/enum_gate.py): the extension
+    # gate rebuilds each read's candidate stream on the device from the
+    # packed query rows and the engine-resident bucket table, so the host
+    # builds and uploads no candidate arrays, only per-read rank windows.
+    # Off by default, as in the JAX engine; PERF.md holds the H100's A/B
+    # against the host-built gate.  Applies only with the packed index
+    # format (one device), to queries whose row count, padded as the JAX
+    # engine pads it (a power of two, at least 256), is at most
+    # pipeline.ENUM_MAX_ROWS, and to compares of fewer than
+    # pipeline.ENUM_MAX_CANDIDATES candidates.
+    gate_enum: bool = False
 
     def validate(self) -> None:
         if self.min_e_value < 0:

@@ -73,6 +73,7 @@ from .io.report import format_record, render_alignment
 from .ops.candidates import (
     encode_seg_chunk, flat_gate, flat_gate_packed, flat_gate_seg,
 )
+from .ops.enum_gate import build_enum_tables, enum_gate_chunk, enum_select_prefix
 from .ops.extend import raw_score_threshold
 from .ops.extend_packed import pack_stream, rows_from_stream
 from .ops.resolve import nw_stats_rows, nw_traceback_rows
@@ -98,6 +99,14 @@ SEG_MAX_INDEX_ROWS = 1 << 25
 # keeps one word per index entry, a query of fewer reads shares one word
 # between read id and k-mer offset; larger samples take the wide formats.
 PACKED_MAX_READS = 1 << 20
+# Device enumeration (Config.gate_enum) ranks a compare's candidates with
+# int32 prefix sums (ops/enum_gate.py); a compare with this many
+# candidates or more takes the host gate, as in the JAX engine.
+ENUM_MAX_CANDIDATES = 1 << 31
+# ... and so does a query of more padded rows (enum_padded_rows) than
+# this, the JAX engine's gate_enum_max_rows: the [rows, row_len - 10]
+# int32 slot tables then reach gigabytes at the 3072 window.
+ENUM_MAX_ROWS = 1 << 17
 
 
 def gate_chunk_sizes(chunks, window: int) -> list:
@@ -108,6 +117,57 @@ def gate_chunk_sizes(chunks, window: int) -> list:
         cap = max(32, GATE_MAX_ELEMENTS // window // 32 * 32)
         chunks = {min(z, cap) for z in chunks}
     return sorted(set(chunks), reverse=True)
+
+
+def enum_padded_rows(n: int) -> int:
+    """The row count that ENUM_MAX_ROWS bounds: n query reads
+    padded to a power of two of at least 256, as the JAX engine pads its
+    query rows."""
+    return max(256, 1 << (max(n, 1) - 1).bit_length())
+
+
+def build_flat(stream, q_start, read_ids, from_rank, to_rank):
+    """Flat (rids, hits, qoffs) int32 arrays for candidate ranks [from, to)
+    per read, read-major, stream order.  ``stream`` is the tuple of
+    TorchEngine._kmer_stream; hits are index rows, qoffs k-mer end offsets
+    in read-row coordinates."""
+    kp, K_off, lo, cnt, Ccum, C_off = stream
+    N_r = C_off[1:] - C_off[:-1]
+    out_size = int(
+        np.maximum(0, np.minimum(to_rank, N_r[read_ids]) - from_rank).sum()
+    )
+    arrs = native.build_flat_arrays(
+        read_ids, from_rank, to_rank, K_off, C_off,
+        kp, lo, cnt, Ccum, q_start, FIXED_K, out_size,
+    )
+    if arrs is not None:
+        return arrs
+    # numpy fallback: the whole selection of the rank windows (read_ids
+    # ascending, as every caller's flatnonzero gives them)
+    frm = np.zeros(len(N_r), np.int64)
+    to = np.zeros(len(N_r), np.int64)
+    frm[read_ids] = from_rank
+    to[read_ids] = to_rank
+    return map_selected(stream, q_start, np.arange(out_size), frm, to)
+
+
+def map_selected(stream, q_start, sel_idx, frm, to):
+    """(rids, hits, qoffs) int32 of the candidates at positions ``sel_idx``
+    of a stage's selection (ranks [frm[r], to[r]) of every read r, in
+    stream order), from the host stream tables: the inverse of the device
+    enumeration's addressing (ops/enum_gate.py enum_candidates)."""
+    kp, K_off, lo, cnt, Ccum, C_off = stream
+    N_r = C_off[1:] - C_off[:-1]
+    lo_r = np.minimum(frm, N_r)
+    sel_r = np.maximum(np.minimum(to, N_r) - lo_r, 0)
+    selcum = np.zeros(len(N_r) + 1, np.int64)
+    np.cumsum(sel_r, out=selcum[1:])
+    r = np.searchsorted(selcum, sel_idx, side="right") - 1
+    gc = C_off[r] + lo_r[r] + (sel_idx - selcum[r])
+    slot = np.searchsorted(Ccum, gc, side="right") - 1
+    hits = (lo[slot] + (gc - Ccum[slot])).astype(np.int32)
+    qoffs = (kp[slot] + FIXED_K - q_start[r]).astype(np.int32)
+    return r.astype(np.int32), hits, qoffs
 
 
 @dataclasses.dataclass(slots=True)
@@ -227,6 +287,13 @@ class TorchEngine:
                 words = ((sid.astype(np.uint32) << np.uint32(12))
                          | doff.astype(np.uint32)).view(np.int32)
             self._d_idx_tab = self._put(words)
+        # Device enumeration (Config.gate_enum) needs the packed index
+        # words and the bucket prefix table on the device (4^12 + 1 words).
+        self._use_enum = bool(self.cfg.gate_enum) and self._packed_idx
+        self._d_bs = (
+            self._put(np.asarray(self.index.bucket_start, np.int32))
+            if self._use_enum else None
+        )
         self._d_dlen = self._put(np.asarray(self.db_read_lens, np.int32))
         self._dp_cache: Dict[int, torch.Tensor] = {}
         self._nw_cells = 0
@@ -441,6 +508,24 @@ class TorchEngine:
         )
         return self._gate_chunks_fetch(pending, len(hits))
 
+    def _gate_spans(self, N: int, window: int):
+        """The gate's chunks over N candidates at an extension window:
+        (first candidate, candidates, padded chunk size) each."""
+        sizes = gate_chunk_sizes(self.cfg.gate_chunks, window)
+        pos = 0
+        while pos < N:
+            rem = N - pos
+            # The smallest size whose repetition count doesn't exceed a
+            # single larger chunk's slots; the largest bounds the gate's
+            # [chunk, window] device temporaries.
+            size = sizes[0]
+            for z in sizes[1:]:
+                if -(-rem // z) * z <= size:
+                    size = z
+            take = min(rem, size)
+            yield pos, take, -(-take // 32) * 32  # bits pack 32 per word
+            pos += take
+
     def _gate_chunks_dispatch(self, rids, hits, qoffs, d_thr, dev, window):
         """Queue the gate over candidate chunks and return the pending
         list WITHOUT waiting, so callers overlap the gate's device time
@@ -455,26 +540,13 @@ class TorchEngine:
         two words per candidate, read id and qoff sharing one
         (flat_gate_packed).  Every format gives the same bits."""
         d_qp, d_dp, d_qlen, d_dlen = dev
-        N = len(hits)
-        sizes = gate_chunk_sizes(self.cfg.gate_chunks, window)
         wide = d_thr.shape[0] >= PACKED_MAX_READS
         seg = (not wide and self._packed_idx
                and self.index.n_entries <= SEG_MAX_INDEX_ROWS)
         pending = []
         # gate.dispatch / gate.fetch are sub-spans of resolve.extend.
         t_disp0 = time.perf_counter()
-        pos = 0
-        while pos < N:
-            rem = N - pos
-            # The smallest size whose repetition count doesn't exceed a
-            # single larger chunk's slots; the largest bounds the gate's
-            # [chunk, window] device temporaries.
-            size = sizes[0]
-            for z in sizes[1:]:
-                if -(-rem // z) * z <= size:
-                    size = z
-            take = min(rem, size)
-            n_pad = -(-take // 32) * 32  # bits pack 32 per word
+        for pos, take, n_pad in self._gate_spans(len(hits), window):
             sl = slice(pos, pos + take)
             if wide:
                 cand = np.zeros((3, n_pad), np.int32)
@@ -514,7 +586,46 @@ class TorchEngine:
                     self._put(cand), d_thr, window=window,
                 )
             pending.append((pos, take, bits))
-            pos += take
+        self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        return pending
+
+    def _enum_prepare(self, q: SeqInfo, dev):
+        """Queue the device enumeration's slot tables of a compare (they
+        need only the packed rows and per-read scalars, so they build
+        while the host scans k-mers).  Returns (lo, cnt, Rcum, d_hasb)."""
+        d_qp, _, d_qlen, _ = dev
+        qlo, _, n_kmers = self._stream_bounds(q)
+        d_hasb = self._put((qlo != q.start).astype(np.int32))
+        nk = np.minimum(n_kmers, np.iinfo(np.int32).max).astype(np.int32)
+        lo, cnt, Rcum, _ = build_enum_tables(
+            d_qp, self._d_bs, d_hasb, self._put(nk), d_qlen,
+            row_len=d_qp.shape[1] * 16,
+        )
+        return lo, cnt, Rcum, d_hasb
+
+    def _enum_gate_dispatch(self, enum, frm, to, N, d_thr, dev, window):
+        """The device-enumerated twin of _gate_chunks_dispatch: queues the
+        gate over the N candidates of ranks [frm[r], to[r]) of every read
+        r (int64 [n] host arrays) without waiting, in the same chunks and
+        the same pending format.  Only the rank windows cross the link."""
+        if not N:
+            return []
+        lo_g, cnt_g, Rcum, d_hasb = enum
+        d_qp, d_dp, d_qlen, d_dlen = dev
+        with self.timer.phase("gate.enum"):
+            scum, start_off = enum_select_prefix(
+                cnt_g, Rcum, self._put(frm.astype(np.int32)),
+                self._put(to.astype(np.int32)),
+            )
+        pending = []
+        t_disp0 = time.perf_counter()
+        for pos, take, n_pad in self._gate_spans(N, window):
+            bits = enum_gate_chunk(
+                d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab, d_thr,
+                lo_g, scum, start_off, d_hasb, pos,
+                chunk=n_pad, window=window, row_len=d_qp.shape[1] * 16,
+            )
+            pending.append((pos, take, bits))
         self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
         return pending
 
@@ -607,6 +718,17 @@ class TorchEngine:
                 )
 
     # ------------------------------------------------------------------
+    def first_window(self) -> int:
+        """Candidates per read of gate stage 1: Config.first_window, widened
+        with the index's average bucket load (Config.first_window_auto; the
+        cap bounds only the auto-widening -- an explicitly larger
+        first_window is honored)."""
+        F = self.cfg.first_window
+        if self.cfg.first_window_auto and self.index.n_entries:
+            load = self.index.n_entries / float(4 ** FIXED_K)
+            F = max(F, min(64, F * max(1, int(np.ceil(2.0 * load)))))
+        return F
+
     def compare(self, q: SeqInfo) -> PipelineResult:
         cfg = self.cfg
         db = self.db
@@ -641,9 +763,21 @@ class TorchEngine:
                 d_thr = self._put(thr)
                 self._last_dev = dev
 
+        # Device enumeration: queue the slot tables before the host k-mer
+        # scan, so the two overlap.  The host keeps its stream tables in
+        # either case: they map the passing bits back to (read, db read).
+        enum = None
+        if (self._use_enum and dev is not None
+                and enum_padded_rows(n) <= ENUM_MAX_ROWS):
+            with self.timer.phase("gate.enum"):
+                enum = self._enum_prepare(q, dev)
+
         with self.timer.phase("kmer_stream"):
-            kp, K_off, lo, cnt, Ccum, C_off = self._kmer_stream(q)
+            stream = self._kmer_stream(q)
+        C_off, Ccum = stream[5], stream[4]
         N_r = (C_off[1:] - C_off[:-1]) if n else np.empty(0, np.int64)
+        if enum is not None and int(Ccum[-1]) >= ENUM_MAX_CANDIDATES:
+            enum = None
 
         resolved = np.zeros(n, bool)
         rejected_keys = _KeySet()
@@ -654,51 +788,6 @@ class TorchEngine:
 
         if idx.n_entries and n and Ccum[-1]:
             q_start = q.start.astype(np.int64)
-
-            def build_flat(read_ids, from_rank, to_rank):
-                """Flat (rids, hits, qoffs) int32 arrays for candidate
-                ranks [from, to) per read, read-major, stream order.
-                hits are index rows; qoffs are k-mer end offsets in
-                read-row coordinates."""
-                out_size = int(
-                    np.maximum(
-                        0, np.minimum(to_rank, N_r[read_ids]) - from_rank
-                    ).sum()
-                )
-                arrs = native.build_flat_arrays(
-                    read_ids, from_rank, to_rank, K_off, C_off,
-                    kp, lo, cnt, Ccum, q_start, FIXED_K, out_size,
-                )
-                if arrs is not None:
-                    return arrs
-                # numpy fallback: expand each read's slot list by its
-                # bucket counts and trim the rank window, all vectorized.
-                slot_lens = (K_off[read_ids + 1] - K_off[read_ids]).astype(
-                    np.int64
-                )
-                tot_slots = int(slot_lens.sum())
-                pre = np.concatenate(([0], np.cumsum(slot_lens)[:-1]))
-                slots = (
-                    np.repeat(K_off[read_ids], slot_lens)
-                    + np.arange(tot_slots, dtype=np.int64)
-                    - np.repeat(pre, slot_lens)
-                )
-                ts_full = np.repeat(slots, cnt[slots])
-                seg_lens = N_r[read_ids]
-                total_full = int(seg_lens.sum())
-                seg_pre = np.concatenate(([0], np.cumsum(seg_lens)[:-1]))
-                pos = np.arange(total_full, dtype=np.int64) - np.repeat(
-                    seg_pre, seg_lens
-                )
-                keep = (pos >= np.repeat(from_rank, seg_lens)) & (
-                    pos < np.repeat(to_rank, seg_lens)
-                )
-                gcs = (np.repeat(C_off[read_ids], seg_lens) + pos)[keep]
-                rids = np.repeat(read_ids, seg_lens)[keep]
-                ts = ts_full[keep]
-                hits = (lo[ts] + gcs - Ccum[ts]).astype(np.int32)
-                qoffs = (kp[ts] + FIXED_K - q_start[rids]).astype(np.int32)
-                return rids.astype(np.int32), hits, qoffs
 
             def sids_of(hits):
                 if idx.packed is not None:
@@ -713,42 +802,62 @@ class TorchEngine:
                 wave-1 judging.  Large stages, and every stage past
                 SHORT_WINDOW, run the SMALL extension window first (random
                 reads' walks provably die inside it); the escapees
-                re-gate at the full window inside finish()."""
-                if prebuilt is not None:
-                    rids, hits, qoffs = prebuilt
+                re-gate at the full window inside finish().  With device
+                enumeration the candidates are built on the device from
+                the rank windows, and the host maps back only the
+                escapees and the passes (map_selected)."""
+                if enum is not None:
+                    frm = np.zeros(n, np.int64)
+                    to = np.zeros(n, np.int64)
+                    frm[read_ids] = from_rank
+                    to[read_ids] = to_rank
+                    N = int(np.maximum(
+                        np.minimum(to, N_r) - np.minimum(frm, N_r), 0).sum())
                 else:
-                    with self.timer.phase("gate.build"):
-                        rids, hits, qoffs = build_flat(
-                            read_ids, from_rank, to_rank
-                        )
-                self._n_cands += len(rids)
+                    if prebuilt is not None:
+                        rids, hits, qoffs = prebuilt
+                    else:
+                        with self.timer.phase("gate.build"):
+                            rids, hits, qoffs = build_flat(
+                                stream, q_start, read_ids, from_rank, to_rank
+                            )
+                    N = len(hits)
+                self._n_cands += N
                 w_small = self.cfg.gate_window_small
                 use_small = 0 < w_small < window and (
                     window > SHORT_WINDOW
-                    or (allow_small
-                        and len(rids) > SMALL_TIER_MIN_CANDIDATES)
+                    or (allow_small and N > SMALL_TIER_MIN_CANDIDATES)
                 )
                 w1 = w_small if use_small else window
                 with self.timer.phase("resolve.extend"):
-                    pending = self._gate_chunks_dispatch(
-                        rids, hits, qoffs, d_thr, dev, w1
-                    )
+                    if enum is not None:
+                        pending = self._enum_gate_dispatch(
+                            enum, frm, to, N, d_thr, dev, w1
+                        )
+                    else:
+                        pending = self._gate_chunks_dispatch(
+                            rids, hits, qoffs, d_thr, dev, w1
+                        )
+
+                def triples(sel):
+                    """(rids, hits, qoffs) of the stage's candidates at
+                    positions sel."""
+                    if enum is not None:
+                        return map_selected(stream, q_start, sel, frm, to)
+                    return rids[sel], hits[sel], qoffs[sel]
 
                 def finish():
                     with self.timer.phase("resolve.extend"):
-                        passes, exact = self._gate_chunks_fetch(
-                            pending, len(hits)
-                        )
+                        passes, exact = self._gate_chunks_fetch(pending, N)
                         if use_small:
                             esc = np.flatnonzero(~exact)
                             if len(esc):
                                 p2, _ = self._gate_chunks(
-                                    rids[esc], hits[esc], qoffs[esc], d_thr,
-                                    dev, window,
+                                    *triples(esc), d_thr, dev, window
                                 )
                                 passes[esc] = p2
-                    pidx = np.flatnonzero(passes)
-                    return rids[pidx], sids_of(hits[pidx])
+                    pr, ph, _ = triples(np.flatnonzero(passes))
+                    return pr, sids_of(ph)
 
                 return finish
 
@@ -762,23 +871,16 @@ class TorchEngine:
                 # The rare reads whose stage-1 pairs all got rejected gate
                 # their remainder afterwards, and one final NW wave
                 # resolves everything stage 2 surfaced.
-                F = cfg.first_window
-                if cfg.first_window_auto and idx.n_entries:
-                    # see Config.first_window_auto; the cap bounds only
-                    # the auto-widening -- an explicitly larger
-                    # first_window is honored.
-                    load = idx.n_entries / float(4 ** FIXED_K)
-                    F = max(
-                        F,
-                        min(64, F * max(1, int(np.ceil(2.0 * load)))),
-                    )
+                F = self.first_window()
                 all_reads = np.flatnonzero(N_r > 0)
                 c0 = self._n_cands
                 # Stage 1 queued + speculative tail build: while stage 1's
                 # chunks compute on the device, the host builds the
                 # [F, N_r) candidate tails of ALL reads -- stage 2 gates
                 # the no-pass subset and stage 3 the rejected-leftover
-                # subset, both row-compressions of this one array.  Up to
+                # subset, both row-compressions of this one array.  With
+                # device enumeration nothing is built: stages 2 and 3
+                # enumerate their rank windows on the device.  Up to
                 # SHORT_WINDOW stage 1 keeps the full extension window
                 # (allow_small=False): half its candidates are true-pair
                 # seeds whose walks escape the small tier anyway.
@@ -789,14 +891,26 @@ class TorchEngine:
                     allow_small=False,
                 )
                 tail_pre = None
-                with self.timer.phase("gate.build"):
-                    tail_reads = np.flatnonzero(N_r > F)
-                    if len(tail_reads):
-                        tail_pre = build_flat(
-                            tail_reads,
-                            np.full(len(tail_reads), F, np.int64),
-                            N_r[tail_reads],
-                        )
+                if enum is None:
+                    with self.timer.phase("gate.build"):
+                        tail_reads = np.flatnonzero(N_r > F)
+                        if len(tail_reads):
+                            tail_pre = build_flat(
+                                stream, q_start, tail_reads,
+                                np.full(len(tail_reads), F, np.int64),
+                                N_r[tail_reads],
+                            )
+
+                def tail_rows(keep_read):
+                    """The speculative tail's candidates of the reads that
+                    keep_read marks (None with device enumeration)."""
+                    if tail_pre is None:
+                        return None
+                    t_r, t_h, t_q = tail_pre
+                    with self.timer.phase("gate.build"):
+                        keep = keep_read[t_r]
+                        return t_r[keep], t_h[keep], t_q[keep]
+
                 pr1, ps1 = fin1()
                 cr1, cs1, ck1, key1 = self._dedup_pairs(
                     pr1, ps1, rejected_keys
@@ -815,13 +929,9 @@ class TorchEngine:
                 if len(spec):
                     # Stage 2 queued behind wave 1 and fetched only after
                     # judging: its compute overlaps the host judging.
-                    t_r, t_h, t_q = tail_pre
-                    with self.timer.phase("gate.build"):
-                        keep = ~has_pass[t_r]
-                        sub2 = (t_r[keep], t_h[keep], t_q[keep])
                     fin2 = gate_begin(
                         spec, np.full(len(spec), F, np.int64), N_r[spec],
-                        prebuilt=sub2,
+                        prebuilt=tail_rows(~has_pass),
                     )
 
                 with self.timer.phase("resolve.nw"):
@@ -836,13 +946,9 @@ class TorchEngine:
                 if len(leftover):
                     # queue the leftover gate BEFORE fetching stage 2: it
                     # computes while the host waits on stage 2.
-                    t_r, t_h, t_q = tail_pre
-                    with self.timer.phase("gate.build"):
-                        k3 = has_pass[t_r] & ~resolved[t_r]
-                        sub3 = (t_r[k3], t_h[k3], t_q[k3])
                     fin3 = gate_begin(
                         leftover, np.full(len(leftover), F, np.int64),
-                        N_r[leftover], prebuilt=sub3,
+                        N_r[leftover], prebuilt=tail_rows(has_pass & ~resolved),
                     )
                 if fin2 is not None:
                     pr2, ps2 = fin2()
