@@ -6,7 +6,8 @@
     python3 chip_smoke.py --config3 --gate-enum  # and with enumeration
 
 Phases, in order but for 9, which runs right after 6 (it reuses 4-6's
-engines, then frees them before 7); any failure raises and exits non-zero:
+engines, then frees them before 7), and 10, which runs last (it reuses
+4-5's and 8's samples); any failure raises and exits non-zero:
 
   1. device  -- requires torch.cuda; prints the card's name and power limit
                 (nvidia-smi), its SMs and max SM clock, and the torch /
@@ -110,6 +111,24 @@ engines, then frees them before 7); any failure raises and exits non-zero:
                 enumerated compare.  Phase 8's paths are outside the
                 enumeration's rules (the wide index; 2^21 padded query
                 rows) and are skipped.
+ 10. mesh    -- one engine over a grid of four mesh positions on the one
+                card (TorchEngine(..., mesh_devices=["cuda:0"] * 4),
+                Config(mesh_shape=grid); phase_mesh): the 20k at (4, 1),
+                (2, 2) and (1, 4) must give phase 4's pairs and report
+                bytes, the 2k at (2, 2) the JAX hash; Config(gate_enum=True)
+                at (2, 2) must take the host gate and give its pairs; the
+                long 512 block at (2, 2) and (1, 4) its 256 accepts and JAX
+                hash; phase 8's first 2,000 queries against the wide db at
+                (1, 4), on phase 8's index split over the four positions,
+                REF_WIDE_DB_2K; the whole wide query against 2,000 db reads
+                at (2, 2), REF_WIDE_QUERY.  Prints each part's walls, peak
+                device memory and launches, the kernels' per-position batch
+                shapes, and a traced warm compare of the 20k at (2, 2).  The
+                kernels run at per-position batch shapes, but on one card
+                this measures sharding overhead, not a multi-card speedup.
+                With two cards or more it also runs the 20k on "auto" over
+                them (its pairs and report) and the 2k on an engine on
+                cuda:1 alone (the JAX hash); with one, it says it did not.
 
 A long path that launches a kernel past L = 256 on more pairs than the
 card holds at once fails unless phase 3 held such a batch at that
@@ -859,8 +878,8 @@ def phase_slice(keep: dict) -> dict:
         {k: round(v, 4) for k, v in sorted(res.timings.items())}))
     print("20k stages: " + json.dumps(eng.stage_stats))
     q2 = reads_to_seqinfo(qc[:2000])
-    keep["20k"] = dict(q=q, q2=q2, eng=eng, res=res,
-                       stages=dict(eng.stage_stats))
+    keep["20k"] = dict(q=q, q2=q2, db=db, eng=eng, res=res,
+                       stages=dict(eng.stage_stats), report=report)
     if res.accepted != ACCEPTED_20K:
         raise AssertionError(f"20k accepted {res.accepted} != {ACCEPTED_20K}")
     if min(launches.values()) < 1:
@@ -968,7 +987,8 @@ def phase_long(cases: list, keep: dict) -> dict:
     print("long phases: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(res.timings.items())}))
     print("long stages: " + json.dumps(eng.stage_stats))
-    keep["long"] = dict(q=q, eng=eng, res=res, stages=dict(eng.stage_stats))
+    keep["long"] = dict(q=q, db=db, eng=eng, res=res,
+                        stages=dict(eng.stage_stats), report=report)
     print_shapes("long", shapes)
     assert_checked(shapes, cases)
     res_w, t_c = warm("long compare", lambda: eng.compare(q))
@@ -1286,7 +1306,7 @@ def wide_part(label: str, db: SeqInfo, q: SeqInfo, check, anchors=()) -> dict:
     asserts), runs that compare and render once more traced by the
     profiler, and holds each of `anchors`, (SeqInfo, (accepted, report
     sha256)), to the JAX engine's result.  Returns the first run's
-    launches."""
+    launches and the engine's index."""
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
@@ -1322,16 +1342,17 @@ def wide_part(label: str, db: SeqInfo, q: SeqInfo, check, anchors=()) -> dict:
         ra = eng.compare(qa)
         check_anchor(f"{label} {qa.n_seqs} x {db.n_seqs}", ra,
                      eng.render_report(qa, ra), want)
-    return launches
+    return launches, eng.index
 
 
-def phase_wide() -> dict:
+def phase_wide(work: dict) -> dict:
     """Config-3's workload at N_WIDE reads a side, past the packed formats'
     2^20 reads: (a) the whole db side as the database (the wide index)
     against the first query slice of config-3's 100,000 reads, and the
     first 2,000 query reads against the JAX anchor; (b) the whole query
     side (the wide candidate format) against the first 2,000 db reads,
-    against the JAX anchor."""
+    against the JAX anchor.  Leaves the samples and (a)'s index in
+    work["wide"] for phase 10."""
     t0 = time.perf_counter()
     qc, dbc = synth_config3(N_WIDE, *CONFIG3_SHAPE)
     q, db = reads_to_seqinfo(qc), reads_to_seqinfo(dbc)
@@ -1351,10 +1372,11 @@ def phase_wide() -> dict:
             raise AssertionError("wide-query: the query is under 2^20 reads")
         check_anchor("wide-query", res, report, REF_WIDE_QUERY)
 
-    la = wide_part("wide-db", db, q.slice_reads(0, CONFIG3_SLICE), wide_db,
-                   [(q.slice_reads(0, 2000), REF_WIDE_DB_2K)])
+    la, index = wide_part("wide-db", db, q.slice_reads(0, CONFIG3_SLICE),
+                          wide_db, [(q.slice_reads(0, 2000), REF_WIDE_DB_2K)])
     torch.cuda.empty_cache()
-    lb = wide_part("wide-query", db.slice_reads(0, 2000), q, wide_query)
+    lb, _ = wide_part("wide-query", db.slice_reads(0, 2000), q, wide_query)
+    work["wide"] = dict(q=q, db=db, index=index)
     return {k: la[k] + lb[k] for k in la}
 
 
@@ -1538,6 +1560,155 @@ def phase_enum(cases: list, keep: dict) -> dict:
     return launches
 
 
+MESH_DEVICES = ["cuda:0"] * 4  # phase 10's positions, all on one card
+
+
+def mesh_engine(db: SeqInfo, grid, index=None, **cfg) -> TorchEngine:
+    """TorchEngine(db, Config(mesh_shape=grid, **cfg)) on MESH_DEVICES,
+    on `index` when given; prints its build wall."""
+    t0 = time.perf_counter()
+    eng = TorchEngine(db, Config(mesh_shape=grid, **cfg), index=index,
+                      device="cuda", mesh_devices=MESH_DEVICES)
+    torch.cuda.synchronize()
+    if eng._mesh is None or (eng._mesh.shape["data"],
+                             eng._mesh.shape["dict"]) != tuple(grid):
+        raise AssertionError(f"mesh {grid}: the engine has no such grid")
+    print(f"mesh {tuple(grid)} engine build {time.perf_counter() - t0:.3f} s"
+          f", index entries {eng.index.n_entries}, shard rows "
+          f"{eng._shard_rows}")
+    return eng
+
+
+def mesh_run(label: str, eng: TorchEngine, q: SeqInfo, launches: dict,
+             render: bool = True):
+    """One cold compare (and render) on a mesh engine, its kernel launches
+    added to `launches`; prints the walls, counts, peak device memory and
+    launches.  Returns (result, report or None)."""
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = eng.compare(q)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    report = eng.render_report(q, res) if render else None
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = read_counts()
+    for k, v in n.items():
+        launches[k] += v
+    print(f"{label}: compare {t1 - t0:.3f} s, render {t2 - t1:.3f} s, "
+          f"accepted {res.accepted}, candidates {res.n_candidates}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB, launches {n}")
+    return res, report
+
+
+def same_result(label: str, res, report, want: dict) -> None:
+    """The pairs (and the report, when given) must equal the one-device
+    engine's (want: its result and report)."""
+    same = res.pairs == want["res"].pairs and (
+        report is None or report == want["report"])
+    print(f"{label}: pairs{'' if report is None else ' and report'} equal "
+          f"the one-device engine's: {same}")
+    if not same:
+        raise AssertionError(f"{label}: differs from the one-device engine")
+
+
+def phase_mesh(cases: list, work: dict) -> dict:
+    """Phase 10: one engine over a grid of mesh positions
+    (Config.mesh_shape, TorchEngine(mesh_devices=)), here four positions
+    on the one card (MESH_DEVICES): every sharding rule and both kernels
+    at per-position batch shapes, but sharding overhead on one card, not
+    a multi-card speedup.  The 20k (phase 4) at (4, 1), (2, 2) and (1, 4),
+    each with phase 4's pairs and report, the 2k's JAX hash at (2, 2) and
+    a traced warm compare at (2, 2); the long 512 block (phase 5) at (2,
+    2) and (1, 4), its JAX hash; phase 8's 2,000 queries against the wide
+    db at (1, 4) on phase 8's index, its JAX hash; the wide query at (2,
+    2), its JAX hash; Config(gate_enum=True) at (2, 2), the host gate's
+    pairs.  With two cards or more, also the 20k on "auto" over them and
+    a compare on device "cuda:1"."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    shapes = {}
+    restore = record_shapes(shapes)
+    try:
+        w = w20 = work.pop("20k")
+        for grid in ((4, 1), (2, 2), (1, 4)):
+            eng = mesh_engine(w["db"], grid, index=w["index"])
+            res, report = mesh_run(f"mesh 20k {grid}", eng, w["q"], launches)
+            same_result(f"mesh 20k {grid}", res, report, w)
+            if grid == (2, 2):
+                ra, rep2 = mesh_run(f"mesh 2k {grid}", eng, w["q2"], launches)
+                check_anchor(f"mesh 2k {grid}", ra, rep2,
+                             (REF_2K_ACCEPTED, REF_2K_SHA256))
+                _, t_c = warm(f"mesh 20k {grid} compare",
+                              lambda: eng.compare(w["q"]))
+                print(f"mesh 20k {grid} warm (profiled): compare {t_c:.3f} s")
+            del eng
+        eng = mesh_engine(w["db"], (2, 2), index=w["index"], gate_enum=True)
+        if eng._use_enum:
+            raise AssertionError("mesh enum: a mesh engine enumerated")
+        res, _ = mesh_run("mesh enum 20k (2, 2)", eng, w["q"], launches,
+                          render=False)
+        same_result("mesh enum 20k (2, 2)", res, None, w)
+        del eng
+
+        w = work.pop("long")
+        for grid in ((2, 2), (1, 4)):
+            eng = mesh_engine(w["db"], grid)
+            res, report = mesh_run(f"mesh long {grid}", eng, w["q"], launches)
+            check_anchor(f"mesh long {grid}", res, report,
+                         (REF_LONG_ACCEPTED, REF_LONG_SHA256))
+            del eng
+
+        w = work.pop("wide")
+        torch.cuda.empty_cache()
+        eng = mesh_engine(w["db"], (1, 4), index=w["index"], **WIDE_CONFIG)
+        if eng._packed_idx:
+            raise AssertionError("mesh wide-db: the engine kept the packed "
+                                 "index")
+        q2 = w["q"].slice_reads(0, 2000)
+        res, report = mesh_run("mesh wide-db 2000 (1, 4)", eng, q2, launches)
+        check_anchor("mesh wide-db 2000 (1, 4)", res, report, REF_WIDE_DB_2K)
+        del eng, w["index"]
+        torch.cuda.empty_cache()
+        eng = mesh_engine(w["db"].slice_reads(0, 2000), (2, 2), **WIDE_CONFIG)
+        res, report = mesh_run("mesh wide-query (2, 2)", eng, w["q"],
+                               launches)
+        check_anchor("mesh wide-query (2, 2)", res, report, REF_WIDE_QUERY)
+        del eng
+    finally:
+        restore()
+    print_shapes("mesh", shapes)
+    assert_checked(shapes, cases)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        # real cards: "auto" spreads the 20k over them; one engine on the
+        # second card alone (kernels launched on a card other than the
+        # current one)
+        w = w20
+        eng = TorchEngine(w["db"], Config(), index=w["index"], device="cuda")
+        if eng._mesh is None:
+            raise AssertionError(f"auto took one device of {n_cards}")
+        print(f"mesh auto: {eng._mesh.shape} over {n_cards} cards")
+        res, report = mesh_run("mesh auto 20k", eng, w["q"], launches)
+        same_result("mesh auto 20k", res, report, w)
+        del eng
+        eng = TorchEngine(w["db"], Config(mesh_shape=None), index=w["index"],
+                          device="cuda:1")
+        ra, rep2 = mesh_run("cuda:1 2k", eng, w["q2"], launches)
+        check_anchor("cuda:1 2k", ra, rep2, (REF_2K_ACCEPTED, REF_2K_SHA256))
+        del eng
+    else:
+        print(f"mesh real cards: not run: the 20k on \"auto\" over several "
+              f"cards and a compare on cuda:1 need two cards; this machine "
+              f"has {n_cards}")
+    print(f"mesh launches {launches}, phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if launches["nw_stats"] < 1 or launches["nw_forward"] < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
 
 def phase_config3(gate_enum: bool = False) -> dict:
     """bench_config3.py's workload whole through the port: 1M x 1M reads
@@ -1658,11 +1829,18 @@ def main(argv) -> int:
     cases = phase_kernels()
     keep = {}  # phases 4-6's workloads and engines, for phase 9
     paths = [phase_slice(keep), phase_long(cases, keep),
-             phase_long20k(cases, keep), phase_enum(cases, keep)]
+             phase_long20k(cases, keep)]
+    # phases 4-5's samples and results (not their engines), for phase 10
+    work = {k: {f: v for f, v in keep[k].items() if f != "eng"}
+            for k in ("20k", "long")}
+    work["20k"]["index"] = keep["20k"]["eng"].index
+    paths.append(phase_enum(cases, keep))
     # phase 9 took the engines out of keep; phases 7-8 read their peak
     # device memory with nothing of phases 4-6 alive
     torch.cuda.empty_cache()
-    paths += [phase_sweep(), phase_wide()]
+    paths += [phase_sweep(), phase_wide(work)]
+    torch.cuda.empty_cache()
+    paths.append(phase_mesh(cases, work))
     kernels = []
     for name, lines in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]

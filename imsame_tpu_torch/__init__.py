@@ -15,7 +15,8 @@ Layout (mirrors imsame_tpu/):
   ops/       device compute: extension gate (torch), NW aligners (CUDA
              kernels in csrc/ + plain torch versions), traceback (torch)
   csrc/      hand-written CUDA kernels for sm_90a (H100)
-  pipeline   single-device engine (TorchEngine)
+  pipeline   the engine (TorchEngine), on one device or a mesh
+  parallel/  the device mesh and the sharded engine steps
   cli        reference-flag command line
   revcomp    the reference's reverse-complement tool
   orchestrator  all-vs-all sweep over a directory of samples

@@ -80,6 +80,15 @@ class Config:
     # pipeline.ENUM_MAX_ROWS, and to compares of fewer than
     # pipeline.ENUM_MAX_CANDIDATES candidates.
     gate_enum: bool = False
+    # Device mesh (n_data, n_dict) of one engine (parallel/mesh.py):
+    # "auto" = every visible device of the engine's device type on the
+    # data axis, halved until the batch shapes divide evenly (one device
+    # if that leaves one, or if one is visible: "cuda:k" and the CPU are
+    # one device); None = one device; (n_data, n_dict) = that grid, whose
+    # batch shapes must divide (pipeline.TorchEngine._make_mesh).  The
+    # dict axis shards the index payload by row range, the data axis the
+    # gate chunks and NW batches.
+    mesh_shape: object = "auto"
 
     def validate(self) -> None:
         if self.min_e_value < 0:

@@ -144,15 +144,22 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def resident_pairs(kernel: str, L: int) -> int:
+def resident_pairs(kernel: str, L: int, device=None) -> int:
     """Pairs of `kernel` ("nw_stats" or "nw_forward") at bucket L in
-    flight on the current card at once: nw_stats's warp slots (past L =
-    STRIP a launch holds at most this many, each looping over pairs),
-    nw_forward's warps up to STRIP and blocks past it (a launch past this
-    many runs in waves)."""
+    flight at once on `device` (default: the current card): nw_stats's
+    warp slots (past L = STRIP a launch holds at most this many, each
+    looping over pairs), nw_forward's warps up to STRIP and blocks past it
+    (a launch past this many runs in waves)."""
+    index = (torch.cuda.current_device() if device is None
+             else torch.device(device).index)
+    return _resident(kernel, L, index)
+
+
+@functools.cache
+def _resident(kernel: str, L: int, index: int) -> int:
     fn = "nw_stats_slots" if kernel == "nw_stats" else "nw_forward_resident"
-    n = getattr(_lib(), fn)(L)
+    with torch.cuda.device(index):  # the query reads the current card
+        n = getattr(_lib(), fn)(L)
     if n <= 0:
         raise RuntimeError(f"{kernel}: no resident pair at L={L}")
     return n
@@ -196,20 +203,27 @@ def launch(kernel: str, X, Y, xlen, ylen, igap: int, egap: int, *,
     dev = X.device
     ptrs = [X.data_ptr(), Y.data_ptr(), xlen.data_ptr(), ylen.data_ptr(),
             B, L, int(igap), int(egap)]
-    if kernel == "nw_stats":
-        outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5)]
-        n_slots, scratch = B, None
-        if L > STRIP:
-            n_slots = min(B, resident_pairs(kernel, L))
-            scratch = torch.empty((n_slots, 2, 2 * L, 4), dtype=torch.int32,
-                                  device=dev)
-        ptrs += [None if scratch is None else scratch.data_ptr(), n_slots]
-    else:
-        # the kernel writes every word of bp (-1 outside the valid region)
-        outs = [torch.empty((B, 2 * L - 1, L), dtype=torch.int32, device=dev)]
-        outs += [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
-    err = getattr(_lib(), f"{kernel}_launch")(
-        *ptrs, *[o.data_ptr() for o in outs], _stream_ptr(dev))
+    # the launcher runs on the current card: make it X's, whatever the
+    # caller's current device is
+    with torch.cuda.device(dev):
+        if kernel == "nw_stats":
+            outs = [torch.empty(B, dtype=torch.int32, device=dev)
+                    for _ in range(5)]
+            n_slots, scratch = B, None
+            if L > STRIP:
+                n_slots = min(B, resident_pairs(kernel, L, dev))
+                scratch = torch.empty((n_slots, 2, 2 * L, 4),
+                                      dtype=torch.int32, device=dev)
+            ptrs += [None if scratch is None else scratch.data_ptr(), n_slots]
+        else:
+            # the kernel writes every word of bp (-1 outside the valid
+            # region)
+            outs = [torch.empty((B, 2 * L - 1, L), dtype=torch.int32,
+                                device=dev)]
+            outs += [torch.empty(B, dtype=torch.int32, device=dev)
+                     for _ in range(3)]
+        err = getattr(_lib(), f"{kernel}_launch")(
+            *ptrs, *[o.data_ptr() for o in outs], _stream_ptr(dev))
     if err:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
     return outs

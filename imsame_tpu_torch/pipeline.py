@@ -1,4 +1,5 @@
-"""Batched single-device engine: seed scan -> extension gate -> NW resolve.
+"""Batched engine: seed scan -> extension gate -> NW resolve, on one
+device or on a mesh of devices (Config.mesh_shape; parallel/).
 
 Replaces the reference's per-thread sequential scan
 (src/alignmentFunctions.c:43-208) with batched device stages while keeping
@@ -52,6 +53,14 @@ concatenated contiguously, all four reduce in row coordinates to
 ``o <= read_len - 1 - offset`` (forward) and ``o <= offset - K - 1``
 (backward) for *both* the last-read and interior cases, so the walk never
 leaves the owning read and per-read packed rows are sufficient.
+
+On a mesh (parallel/mesh.py) the tables replicate over the positions, the
+index payload splits by row range over "dict", and the gate chunks and
+NW batches split over "data" (NW batches over both axes): each stage
+calls the sharded step of parallel/sharded.py in place of the
+single-device op, with the same bits by construction.  A packed-format
+gate with n_dict > 1 routes each candidate to the position that holds
+its index row (_gate_chunks_routed).
 """
 
 from __future__ import annotations
@@ -77,6 +86,8 @@ from .ops.enum_gate import build_enum_tables, enum_gate_chunk, enum_select_prefi
 from .ops.extend import raw_score_threshold
 from .ops.extend_packed import pack_stream, rows_from_stream
 from .ops.resolve import nw_stats_rows, nw_traceback_rows
+from .parallel import sharded
+from .parallel.mesh import make_mesh, visible_devices
 from .utils.timing import PhaseTimer
 
 # Up to this extension window, gate stages above SMALL_TIER_MIN_CANDIDATES
@@ -109,12 +120,13 @@ ENUM_MAX_CANDIDATES = 1 << 31
 ENUM_MAX_ROWS = 1 << 17
 
 
-def gate_chunk_sizes(chunks, window: int) -> list:
+def gate_chunk_sizes(chunks, window: int, gran: int = 32) -> list:
     """Gate chunk sizes at an extension window, largest first: the
     configured sizes, capped past SHORT_WINDOW at GATE_MAX_ELEMENTS //
-    window candidates (a multiple of 32)."""
+    window candidates (a multiple of ``gran``: 32, times the mesh
+    positions a chunk splits over)."""
     if window > SHORT_WINDOW:
-        cap = max(32, GATE_MAX_ELEMENTS // window // 32 * 32)
+        cap = max(gran, GATE_MAX_ELEMENTS // window // gran * gran)
         chunks = {min(z, cap) for z in chunks}
     return sorted(set(chunks), reverse=True)
 
@@ -232,6 +244,13 @@ class _KeySet:
         return a[i] == keys
 
 
+def _rq_words(rids: np.ndarray, qoffs: np.ndarray) -> np.ndarray:
+    """The two-word candidate format's second word, (read id << 12) |
+    qoff, bit-cast to int32."""
+    return ((rids.astype(np.uint32) << np.uint32(12))
+            | qoffs.astype(np.uint32)).view(np.int32)
+
+
 def _unpack_gate_bits(words: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
     """[2, n/32] int32 gate words -> (passes, exact) bool[n]."""
     pb = np.ascontiguousarray(words, dtype="<i4")
@@ -241,8 +260,15 @@ def _unpack_gate_bits(words: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray
     return flat[0], flat[1]
 
 
+def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
+    """x with zero rows appended up to a multiple of n (the index payload
+    split over n dict shards; the padding rows are never hit)."""
+    return np.pad(x, (0, -len(x) % n)) if len(x) % n else x
+
+
 class TorchEngine:
-    """Compare query samples against one database sample on one device."""
+    """Compare query samples against one database sample on one device,
+    or on a mesh of devices (Config.mesh_shape; parallel/)."""
 
     def __init__(
         self,
@@ -251,11 +277,19 @@ class TorchEngine:
         index: Optional[KmerIndex] = None,
         *,
         device,
+        mesh_devices=None,
     ):
+        """``device``: the torch device ("cuda", "cuda:k" or "cpu").
+        ``mesh_devices``: the devices a mesh spans in place of the visible
+        ones (parallel/mesh.py make_mesh; repeats allowed, e.g. a grid on
+        one card, or on the CPU)."""
         self.db = db
         self.cfg = cfg or Config()
         self.cfg.validate()
         self.device = torch.device(device)
+        self._mesh = self._make_mesh(mesh_devices)
+        if self._mesh is not None:
+            self.device = self._mesh.lead
         self.timer = PhaseTimer()
         self.db_read_lens = db.read_lens()
         max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
@@ -272,12 +306,21 @@ class TorchEngine:
         # candidate in the gate.  Past it, the wide (pos, sid, db_start)
         # triple, as in the JAX engine.
         self._packed_idx = db.n_seqs < PACKED_MAX_READS and max_dlen < 4096
+        # On a mesh the payload splits by row range over "dict" (padded to
+        # a multiple of n_dict rows); db_start replicates.
+        n_dict = self._mesh.shape["dict"] if self._mesh else 1
         if not self._packed_idx:
-            self._d_idx_tab = (
-                self._put(np.asarray(self.index.pos, np.int32)),
-                self._put(np.asarray(self.index.sid, np.int32)),
-                self._put(np.asarray(db.start, np.int32)),
-            )
+            pos = _pad_rows(np.asarray(self.index.pos, np.int32), n_dict)
+            sid = _pad_rows(np.asarray(self.index.sid, np.int32), n_dict)
+            self._shard_rows = len(pos) // n_dict
+            db_start = self._put(np.asarray(db.start, np.int32))
+            if self._mesh is None:
+                self._d_idx_tab = (self._put(pos), self._put(sid), db_start)
+            else:
+                self._d_idx_tab = list(zip(
+                    self._mesh.put_rows(pos), self._mesh.put_rows(sid),
+                    self._mesh.put(db_start),
+                ))
         else:
             if self.index.packed is not None:
                 words = self.index.packed.view(np.int32)
@@ -286,15 +329,21 @@ class TorchEngine:
                 doff = np.asarray(self.index.pos, np.int64) - db.start[sid]
                 words = ((sid.astype(np.uint32) << np.uint32(12))
                          | doff.astype(np.uint32)).view(np.int32)
-            self._d_idx_tab = self._put(words)
+            words = _pad_rows(words, n_dict)
+            self._shard_rows = len(words) // n_dict
+            self._d_idx_tab = (self._put(words) if self._mesh is None
+                               else self._mesh.put_rows(words))
         # Device enumeration (Config.gate_enum) needs the packed index
-        # words and the bucket prefix table on the device (4^12 + 1 words).
-        self._use_enum = bool(self.cfg.gate_enum) and self._packed_idx
+        # words and the bucket prefix table on the device (4^12 + 1 words);
+        # a mesh takes the host gate, as in the JAX engine.
+        self._use_enum = (bool(self.cfg.gate_enum) and self._packed_idx
+                          and self._mesh is None)
         self._d_bs = (
             self._put(np.asarray(self.index.bucket_start, np.int32))
             if self._use_enum else None
         )
-        self._d_dlen = self._put(np.asarray(self.db_read_lens, np.int32))
+        self._d_dlen = self._rep(
+            self._put(np.asarray(self.db_read_lens, np.int32)))
         self._dp_cache: Dict[int, torch.Tensor] = {}
         self._nw_cells = 0
         self._n_cands = 0
@@ -304,8 +353,52 @@ class TorchEngine:
         self.stage_stats: Dict[str, tuple] = {}
 
     # ------------------------------------------------------------------
+    # Mesh plumbing: the data axis splits gate chunks and NW batches (the
+    # reference's pthread split of query work), the dict axis the index
+    # payload (its shared dictionary).
+    def _make_mesh(self, mesh_devices):
+        """The Mesh of Config.mesh_shape over ``mesh_devices`` (default:
+        the visible devices of the engine's device type), or None for one
+        device.  An explicit grid whose batch shapes do not divide over
+        it raises ValueError; "auto" takes the widest data axis they
+        divide over, as the JAX engine does."""
+        ms = self.cfg.mesh_shape
+        if ms is None:
+            return None
+        devices = (list(mesh_devices) if mesh_devices is not None
+                   else visible_devices(self.device))
+        cfg = self.cfg
+        nw_batches = cfg.nw_stats_batches + cfg.nw_render_batches
+
+        def divides(n: int) -> bool:
+            # gate chunks need n * 32 candidates for the per-shard bit
+            # packing; NW batches n * 8 pairs
+            return not (any(c % (n * 32) for c in cfg.gate_chunks)
+                        or any(b % (n * 8) for b in nw_batches))
+
+        if ms == "auto":
+            d = len(devices)
+            while d > 1 and not divides(d):
+                d //= 2
+            return make_mesh(d, 1, devices) if d > 1 else None
+        n_data, n_dict = ms
+        if n_data * n_dict <= 1:
+            return None
+        if not divides(n_data * n_dict):
+            raise ValueError(
+                "gate_chunks / NW batch shapes must divide evenly over the "
+                "mesh (n_data*n_dict*32 and n_data*n_dict*8 respectively; "
+                "the dict-routed gate slices chunks over both axes)")
+        return make_mesh(n_data, n_dict, devices)
+
     def _put(self, x: np.ndarray) -> torch.Tensor:
+        """Upload to the engine's (lead) device."""
         return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+
+    def _rep(self, t: torch.Tensor):
+        """A lead-device table as the engine's steps take it: the tensor
+        itself, or on a mesh one per position (mesh.put)."""
+        return t if self._mesh is None else self._mesh.put(t)
 
     def _rows_on_device(
         self, codes: np.ndarray, start: np.ndarray, lens: np.ndarray,
@@ -321,11 +414,11 @@ class TorchEngine:
             row_len=row_len,
         )
 
-    def _packed_db_rows(self, row_len: int) -> torch.Tensor:
+    def _packed_db_rows(self, row_len: int):
         if row_len not in self._dp_cache:
-            self._dp_cache[row_len] = self._rows_on_device(
+            self._dp_cache[row_len] = self._rep(self._rows_on_device(
                 self.db.codes, self.db.start, self.db_read_lens, row_len
-            )
+            ))
         return self._dp_cache[row_len]
 
     # ------------------------------------------------------------------
@@ -411,10 +504,12 @@ class TorchEngine:
 
     def _render_sizes(self, L: int) -> tuple:
         """Render ladder for length bucket L: the configured ladder capped
-        so one chunk's bp tensor (8*L^2 bytes/pair) fits the budget, in
-        multiples of 8 pairs."""
-        gran = 8
-        cap = int(self.cfg.nw_render_bp_budget // (8 * L * L))
+        so one chunk's bp tensor (8*L^2 bytes/pair) fits the budget per
+        device (the pair batch shards over every mesh position), in
+        multiples of 8 pairs a position."""
+        n_dev = 1 if self._mesh is None else self._mesh.size
+        gran = 8 * n_dev
+        cap = int(self.cfg.nw_render_bp_budget * n_dev // (8 * L * L))
         cap = max(gran, (cap // gran) * gran)
         sizes = tuple(b for b in self.cfg.nw_render_batches if b <= cap)
         if not sizes:
@@ -472,10 +567,17 @@ class TorchEngine:
         for chunk, rpad, spad, L in self._nw_chunks(
             r_ids, sids, qlens, self.cfg.nw_stats_batches
         ):
-            res = nw_stats_rows(
-                d_qp, d_dp, self._put(np.stack([rpad, spad])), d_qlen, d_dlen,
-                self.cfg.igap, self.cfg.egap, max_len=L,
-            )
+            rs = np.stack([rpad, spad])
+            if self._mesh is None:
+                res = nw_stats_rows(
+                    d_qp, d_dp, self._put(rs), d_qlen, d_dlen,
+                    self.cfg.igap, self.cfg.egap, max_len=L,
+                )
+            else:
+                res = sharded.nw_stats_step(
+                    self._mesh, d_qp, d_dp, self._mesh.put_cols(rs, flat=True),
+                    d_qlen, d_dlen, self.cfg.igap, self.cfg.egap, max_len=L,
+                )
             pending.append((chunk, res))
         # sub-span of resolve.nw: host chunking + queueing
         self.timer.accumulate("nw.dispatch", time.perf_counter() - t0)
@@ -510,8 +612,11 @@ class TorchEngine:
 
     def _gate_spans(self, N: int, window: int):
         """The gate's chunks over N candidates at an extension window:
-        (first candidate, candidates, padded chunk size) each."""
-        sizes = gate_chunk_sizes(self.cfg.gate_chunks, window)
+        (first candidate, candidates, padded chunk size) each.  A chunk
+        pads to 32 candidates a data shard: bits pack 32 per word per
+        shard."""
+        gran = 32 * (self._mesh.shape["data"] if self._mesh else 1)
+        sizes = gate_chunk_sizes(self.cfg.gate_chunks, window, gran)
         pos = 0
         while pos < N:
             rem = N - pos
@@ -523,7 +628,7 @@ class TorchEngine:
                 if -(-rem // z) * z <= size:
                     size = z
             take = min(rem, size)
-            yield pos, take, -(-take // 32) * 32  # bits pack 32 per word
+            yield pos, take, -(-take // gran) * gran
             pos += take
 
     def _gate_chunks_dispatch(self, rids, hits, qoffs, d_thr, dev, window):
@@ -538,10 +643,22 @@ class TorchEngine:
         (flat_gate_seg: 4 B/candidate + 8 B/segment) when the index is
         the packed one and its rows fit the 25-bit hit field, else ships
         two words per candidate, read id and qoff sharing one
-        (flat_gate_packed).  Every format gives the same bits."""
+        (flat_gate_packed).  Every format gives the same bits.
+
+        On a mesh the packed chunks take the sharded two-word step
+        (parallel/sharded.py gate_step), or with n_dict > 1 the routed
+        planner (_gate_chunks_routed), and wide ones gate_step_wide; the
+        segment encoding is off, as in the JAX engine.  Each pending entry
+        is (where its bits go in the stage's arrays, which of its bits,
+        the [2, n/32] words)."""
         d_qp, d_dp, d_qlen, d_dlen = dev
-        wide = d_thr.shape[0] >= PACKED_MAX_READS
-        seg = (not wide and self._packed_idx
+        mesh = self._mesh
+        n_q = (d_thr if mesh is None else d_thr[0]).shape[0]
+        wide = n_q >= PACKED_MAX_READS
+        if mesh is not None and mesh.shape["dict"] > 1 and not wide:
+            return self._gate_chunks_routed(rids, hits, qoffs, d_thr, dev,
+                                            window)
+        seg = (mesh is None and not wide and self._packed_idx
                and self.index.n_entries <= SEG_MAX_INDEX_ROWS)
         pending = []
         # gate.dispatch / gate.fetch are sub-spans of resolve.extend.
@@ -549,14 +666,24 @@ class TorchEngine:
         for pos, take, n_pad in self._gate_spans(len(hits), window):
             sl = slice(pos, pos + take)
             if wide:
-                cand = np.zeros((3, n_pad), np.int32)
+                # (hit, read id, qoff, valid): the mesh step masks the
+                # padding with the fourth row
+                cand = np.zeros((4, n_pad), np.int32)
                 cand[0, :take] = hits[sl]
                 cand[1, :take] = rids[sl]
                 cand[2, :take] = qoffs[sl]
-                bits = flat_gate(
-                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                    self._put(cand), d_thr, window=window,
-                )
+                cand[3, :take] = 1
+                if mesh is None:
+                    bits = flat_gate(
+                        d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                        self._put(cand[:3]), d_thr, window=window,
+                    )
+                else:
+                    bits = sharded.gate_step_wide(
+                        mesh, d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                        mesh.put_cols(cand), d_thr, window=window,
+                        shard_rows=self._shard_rows,
+                    )
             elif seg:
                 # segments <= candidates, so n_pad slots never overflow
                 nat = native.seg_encode(
@@ -577,15 +704,79 @@ class TorchEngine:
             else:
                 cand = np.zeros((2, n_pad), np.int32)
                 cand[0, :take] = hits[sl]
-                cand[1, :take] = (
-                    (rids[sl].astype(np.uint32) << np.uint32(12))
-                    | qoffs[sl].astype(np.uint32)
-                ).view(np.int32)
-                bits = flat_gate_packed(
-                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                    self._put(cand), d_thr, window=window,
-                )
-            pending.append((pos, take, bits))
+                cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
+                if mesh is None:
+                    bits = flat_gate_packed(
+                        d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                        self._put(cand), d_thr, window=window,
+                    )
+                else:
+                    bits = sharded.gate_step(
+                        mesh, d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                        mesh.put_cols(cand), d_thr, window=window,
+                        shard_rows=self._shard_rows,
+                    )
+            pending.append((sl, slice(0, take), bits))
+        self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        return pending
+
+    def _gate_chunks_routed(self, rids, hits, qoffs, d_thr, dev, window):
+        """Dict-routed gate planner (a mesh with n_dict > 1, packed query
+        format): candidates are grouped by the index shard that owns
+        their hit row (hit // shard_rows) and laid out so that flat
+        segment p = d * n_dict + k of a chunk holds only shard k's, so
+        every position gates only candidates it owns (parallel/sharded.py
+        gate_step_routed).  Queues the chunks and returns pending entries
+        whose bits the fetch un-permutes.  A chunk holds as many slots for
+        every shard, so skew over the shards costs padding, not
+        correctness."""
+        mesh = self._mesh
+        n_dict = mesh.shape["dict"]
+        rows = self._shard_rows
+        t_disp0 = time.perf_counter()
+        shard = hits // np.int32(rows)
+        order = np.argsort(shard, kind="stable")
+        counts = np.bincount(shard, minlength=n_dict).astype(np.int64)
+        shard_off = np.zeros(n_dict + 1, np.int64)
+        np.cumsum(counts, out=shard_off[1:])
+        rq = _rq_words(rids, qoffs)
+        # shard slots a chunk: the largest chunk's share, or the remainder
+        # padded to 32 candidates a position (bits pack 32 per word per
+        # shard)
+        gran = 32 * mesh.shape["data"]
+        s_max = gate_chunk_sizes(self.cfg.gate_chunks, window,
+                                 32 * mesh.size)[0] // n_dict
+        qpos = np.zeros(n_dict, np.int64)
+        pending = []
+        while (counts - qpos).max(initial=0) > 0:
+            rem = counts - qpos
+            S = min(s_max, -(-int(rem.max()) // gran) * gran)
+            C = S * n_dict
+            seg = S // mesh.shape["data"]  # slots per position
+            cand = np.zeros((2, C), np.int32)
+            perm = np.full(C, -1, np.int64)
+            for k in range(n_dict):
+                take = int(min(S, rem[k]))
+                if take == 0:
+                    continue
+                a = shard_off[k] + qpos[k]
+                idxs = order[a : a + take]
+                j = np.arange(take, dtype=np.int64)
+                posn = (j // seg * n_dict + k) * seg + (j % seg)
+                cand[0, posn] = hits[idxs]
+                cand[1, posn] = rq[idxs]
+                perm[posn] = idxs
+                qpos[k] += take
+            # padding rows stay inside the owning shard's row range (local
+            # row 0 after the step's rebase)
+            pad = np.flatnonzero(perm < 0)
+            cand[0, pad] = (pad // seg % n_dict).astype(np.int32) * rows
+            bits = sharded.gate_step_routed(
+                mesh, *dev, self._d_idx_tab, mesh.put_cols(cand, flat=True),
+                d_thr, window=window, shard_rows=rows,
+            )
+            valid = perm >= 0
+            pending.append((perm[valid], valid, bits))
         self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
         return pending
 
@@ -625,13 +816,14 @@ class TorchEngine:
                 lo_g, scum, start_off, d_hasb, pos,
                 chunk=n_pad, window=window, row_len=d_qp.shape[1] * 16,
             )
-            pending.append((pos, take, bits))
+            pending.append((slice(pos, pos + take), slice(0, take), bits))
         self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
         return pending
 
     def _gate_chunks_fetch(self, pending, N):
         """Wait for the queued chunks (one ``.cpu()``) and unpack the
-        verdict bits."""
+        verdict bits: entry (dest, sel, words) puts the bits ``sel`` of
+        its words at positions ``dest`` of the stage."""
         passes = np.zeros(N, bool)
         exact = np.zeros(N, bool)
         if not pending:
@@ -640,11 +832,11 @@ class TorchEngine:
         flat = torch.cat([bits for _, _, bits in pending], dim=1).cpu().numpy()
         self.timer.accumulate("gate.fetch", time.perf_counter() - t_f0)
         col = 0
-        for pos, take, bits in pending:
+        for dest, sel, bits in pending:
             nw = bits.shape[1]
-            p, e = _unpack_gate_bits(flat[:, col : col + nw], take)
-            passes[pos : pos + take] = p
-            exact[pos : pos + take] = e
+            p, e = _unpack_gate_bits(flat[:, col : col + nw], 32 * nw)
+            passes[dest] = p[sel]
+            exact[dest] = e[sel]
             col += nw
         return passes, exact
 
@@ -755,12 +947,13 @@ class TorchEngine:
         if n and db.n_seqs:
             with self.timer.phase("upload"):
                 dev = (
-                    self._rows_on_device(q.codes, q.start, qlens, window),
+                    self._rep(self._rows_on_device(
+                        q.codes, q.start, qlens, window)),
                     self._packed_db_rows(window),
-                    self._put(np.asarray(qlens, np.int32)),
+                    self._rep(self._put(np.asarray(qlens, np.int32))),
                     self._d_dlen,
                 )
-                d_thr = self._put(thr)
+                d_thr = self._rep(self._put(thr))
                 self._last_dev = dev
 
         # Device enumeration: queue the slot tables before the host k-mer
@@ -1030,10 +1223,17 @@ class TorchEngine:
         for chunk, rpad, spad, L in self._nw_chunks(
             r_ids, sids, qlens, render=True, count_cells=False
         ):
-            res = nw_traceback_rows(
-                d_qp, d_dp, self._put(rpad), self._put(spad), d_qlen, d_dlen,
-                self.cfg.igap, self.cfg.egap, max_len=L,
-            )
+            if self._mesh is None:
+                res = nw_traceback_rows(
+                    d_qp, d_dp, self._put(rpad), self._put(spad), d_qlen,
+                    d_dlen, self.cfg.igap, self.cfg.egap, max_len=L,
+                )
+            else:
+                res = sharded.nw_render_step(
+                    self._mesh, d_qp, d_dp,
+                    self._mesh.put_cols(np.stack([rpad, spad]), flat=True),
+                    d_qlen, d_dlen, self.cfg.igap, self.cfg.egap, max_len=L,
+                )
             head = torch.cat([
                 torch.stack([res.length, res.identities, res.n_steps], 1),
                 res.chain[:, : self._CHAIN_PREFIX],

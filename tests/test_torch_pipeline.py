@@ -295,8 +295,8 @@ def test_native_source_is_the_ports_own():
 
 def test_port_imports_without_jax(tmp_path):
     """The port never imports jax or imsame_tpu: with both blocked it
-    imports (the sweep's modules included) and runs a tiny compare on the
-    CPU."""
+    imports (the sweep's and the mesh's modules included) and runs a tiny
+    compare on the CPU, on one device and on a (1, 2) mesh."""
     qp, dp = make_pair(tmp_path, random.Random(9), n_query=6, n_db=6,
                        read_len=100)
     code = f"""
@@ -306,10 +306,17 @@ sys.modules["imsame_tpu"] = None
 from imsame_tpu_torch.io.fasta import read_fasta
 from imsame_tpu_torch.pipeline import TorchEngine
 from imsame_tpu_torch import distributed, orchestrator, revcomp
+from imsame_tpu_torch.config import Config
+from imsame_tpu_torch.parallel import mesh, sharded
 eng = TorchEngine(read_fasta({str(dp)!r}), device="cpu")
 q = read_fasta({str(qp)!r})
 res = eng.compare(q)
-assert res.accepted == 3 and eng.render_report(q, res)
+report = eng.render_report(q, res)
+assert res.accepted == 3 and report
+eng = TorchEngine(read_fasta({str(dp)!r}), Config(mesh_shape=(1, 2)),
+                  device="cpu", mesh_devices=["cpu"] * 2)
+res = eng.compare(q)
+assert res.accepted == 3 and eng.render_report(q, res) == report
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "imsame_tpu.")) or m == "imsame_tpu"]
 assert all(sys.modules[m] is None for m in bad), bad
 print("ok")

@@ -11,7 +11,9 @@ against the JAX package on the CPU.
     bits of the real candidates must be equal.
   * Engine level: tests/test_capacity.py's wide regimes (a database of
     2^20 + 8 reads; a query of 2^20 + 8 reads), the port's TorchEngine on
-    the CPU against TpuEngine: the same pairs and byte-equal reports.
+    the CPU, on one device and on the (2, 4) mesh, against TpuEngine: the
+    same pairs and byte-equal reports (the plain NW functions compute
+    each pair row once, tests/test_torch_sharded.py plain_rows_once).
 
 ``wide_anchors()`` computes the JAX anchors that chip_smoke.py holds the
 card to at config-3's widths (REF_WIDE_DB_2K, REF_WIDE_QUERY)."""
@@ -32,8 +34,10 @@ from imsame_tpu.pipeline import TpuEngine
 from imsame_tpu_torch.config import Config as TConfig
 from imsame_tpu_torch.io.fasta import SeqInfo as TSeqInfo
 from imsame_tpu_torch.ops import candidates as tcand
+from imsame_tpu_torch.parallel import sharded
 from imsame_tpu_torch.pipeline import PACKED_MAX_READS, TorchEngine
 from test_capacity import WIDE_N, planted_pair
+from test_torch_sharded import plain_rows_once  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,10 +166,13 @@ def _wide_regime(regime):
 
 
 @pytest.mark.parametrize("regime", ["wide_db", "wide_query"])
-def test_engine_wide_regime_matches_jax(monkeypatch, regime):
+def test_engine_wide_regime_matches_jax(monkeypatch, plain_rows_once, regime):
     """2^20 + 8 reads on one side: the port (on the CPU) takes the wide
     index or the wide candidate format, as the JAX engine does, and gives
-    its pairs and report bytes."""
+    its pairs and report bytes, on one device and on the (2, 4) mesh
+    (tests/test_capacity.py's regimes under the mesh): the wide index
+    split over "dict" behind the routed gate, or the wide query through
+    the sharded wide gate."""
     import imsame_tpu_torch.pipeline as tpipe
 
     q_codes, db_codes = _wide_regime(regime)
@@ -195,6 +202,30 @@ def test_engine_wide_regime_matches_jax(monkeypatch, regime):
         assert tq.n_seqs >= PACKED_MAX_READS and jres.accepted > 0
         assert teng._packed_idx
         assert set(formats) == {("flat_gate", False)}
+    del teng, tres
+
+    steps = []
+    for name in ("gate_step", "gate_step_routed", "gate_step_wide"):
+        def step_spy(*a, _real=getattr(sharded, name), _name=name, **k):
+            steps.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(sharded, name, step_spy)
+    meng = TorchEngine(tdb, TConfig(mesh_shape=(2, 4)), device="cpu",
+                       mesh_devices=["cpu"] * 8)
+    mres = meng.compare(tq)
+    assert mres.pairs == jres.pairs
+    assert mres.n_candidates == jres.n_candidates
+    assert meng.render_report(tq, mres) == jreport
+    if regime == "wide_db":
+        assert set(steps) == {"gate_step_routed"}
+        for p, (pos, sid, db_start) in enumerate(meng._d_idx_tab):
+            k = p % 4
+            assert pos.shape == sid.shape == (meng._shard_rows,)
+            n = len(meng.index.pos[k * meng._shard_rows:][:meng._shard_rows])
+            np.testing.assert_array_equal(
+                pos[:n].numpy(), meng.index.pos[k * meng._shard_rows:][:n])
+    else:
+        assert set(steps) == {"gate_step_wide"}
 
 
 def test_config3_generator_is_bench_config3s():
