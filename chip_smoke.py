@@ -12,17 +12,26 @@ engines, then frees them before 7), and 10, which runs last (it reuses
   1. device  -- requires torch.cuda; prints the card's name and power limit
                 (nvidia-smi), its SMs and max SM clock, and the torch /
                 CUDA versions.
-  2. build   -- compiles the native host runtime (gcc) and both NW kernels
-                (nvcc, sm_90a, one process per source) from this checkout;
-                prints each build's seconds and the ptxas register report.
-  3. kernels -- nw_stats and nw_forward against their plain torch versions
-                on the same CUDA tensors (kernel_cases); every output must
-                be exactly equal (integer DP).  Pairs with empty and 1-base
-                reads, and pairs longer than the bucket (a batch's padding
-                pairs repeat read 0, which may be), at L = 128 and 256 and
-                appended to every long bucket's batch; tie-heavy pairs
-                (tie_pairs) at 256 and 512, and for nw_forward at 1024 and
-                3072 (4 and 12 strips handing off); the short path's shapes
+  2. build   -- compiles the native host runtime (gcc) and the three
+                kernels, nw_stats, nw_forward and traceback (nvcc, sm_90a,
+                one process per source) from this checkout; prints each
+                build's seconds and the ptxas register report.
+  3. kernels -- nw_stats, nw_forward and traceback against their plain
+                torch versions on the same CUDA tensors (kernel_cases;
+                the traceback walks the nw_forward kernel's outputs);
+                every output must be exactly equal (integer DP).  The
+                traceback at the render ladder's batches of every bucket
+                (2048 at 128 and 256, 1024, 256, 64 and 8, 24 and 8),
+                at 3072 / 272 (past 2^31 bp words: 64-bit offsets), on the
+                degenerate pairs and on the tie pairs at 256-3072, printing
+                max(n_steps) and the microseconds a move
+                (check_traceback).  For the NW kernels: pairs with empty
+                and 1-base reads, and pairs longer than the bucket (a
+                batch's padding pairs repeat read 0, which may be), at L
+                = 128 and 256 and appended to every long bucket's batch;
+                tie-heavy pairs (tie_pairs) at 256 and 512, and for
+                nw_forward at 1024 and 3072 (4 and 12 strips handing
+                off); the short path's shapes
                 at L = 256 (mixed pairs, lengths 2..256); every long bucket
                 at the batches the compare and render paths use (lengths
                 0.6L..L): nw_stats at B = 256 and, at 512/1024, 2048;
@@ -57,9 +66,14 @@ engines, then frees them before 7), and 10, which runs last (it reuses
                 shapes per bucket.
   6. long20k -- 20,000 query reads of 300..3000 bp against 20,000 db reads,
                 half of them copies of query reads with 4% substitutions
-                and 1% indels (numpy, seed 2024): compare only; must accept
-                10,000 reads, each with its own copy; prints the kernels'
-                batch shapes per bucket.
+                and 1% indels (numpy, seed 2024): compare and render; must
+                accept 10,000 reads, each with its own copy, and render
+                10,000 records; prints the kernels' batch shapes per
+                bucket, the render's wall, report bytes and sha256 and
+                peak device memory.  A second (warm, traced) render and a
+                third, whose first chunk of each bucket the plain
+                traceback also walks (its chains must equal the kernel's),
+                must give the same report.
   7. sweep   -- the all-vs-all sweep of bench.py sweep_bench's four
                 samples of 20,000 reads of 250 bp (write_sweep_samples):
                 AllVsAllRunner(out, Config(), device="cuda").run must
@@ -135,9 +149,10 @@ card holds at once fails unless phase 3 held such a batch at that
 bucket.  Each path runs once more on the warm engine, traced by
 torch.profiler: a "profile" line gives that run's device-busy share and
 leading device work.  Each path's kernel launches are counted from 0 just
-before it and read just after.  The last three lines are a JSON object
-with each kernel's launches on those paths, error, times and bound, the
-card's name and power limit, then {"ok": true, "device": ...}.
+before it and read just after; on a path that renders, the traceback
+must run once for each nw_forward launch.  The last three lines are a
+JSON object with each kernel's launches on those paths, error, times and
+bound, the card's name and power limit, then {"ok": true, "device": ...}.
 
 With --config3 it runs phases 1-2, then bench_config3.py's workload whole
 through the port (phase_config3): 1M x 1M reads of 250 bp written as
@@ -184,6 +199,7 @@ from imsame_tpu_torch.io.fasta import (
     revcomp_fasta_bytes,
 )
 from imsame_tpu_torch.ops import enum_gate, nw, nw_cuda, resolve
+from imsame_tpu_torch.ops.traceback import TracebackResult, traceback_batch
 from imsame_tpu_torch.orchestrator import AllVsAllRunner, list_samples, make_jobs
 from imsame_tpu_torch.pipeline import PACKED_MAX_READS, TorchEngine, build_flat
 
@@ -304,17 +320,26 @@ BIG_B = 32768  # the long 20k compare's largest nw_stats launch (L = 3072)
 OPS_PER_CELL = 25
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (data sheet)
 CARD = {}  # "sms", "sm_hz" of the card, read by phase_device
-KERNELS = {
+KERNELS = {  # the NW kernels, on code rows: (wrapper, plain version)
     "nw_stats": (nw_cuda.nw_stats, nw.nw_stats_batch),
     "nw_forward": (nw_cuda.nw_forward, nw.nw_forward_batch),
 }
-# Pallas functions each kernel replaces: nw_stats_batch_pallas_pipe4,
-# _pipe3, _pipe2, _pipe and nw_stats_batch_pallas; nw_forward_batch_pallas
-# _pipe5 and nw_forward_batch_pallas
+# every kernel's wrapper, whose launches each path counts
+COUNTED = {"nw_stats": nw_cuda.nw_stats, "nw_forward": nw_cuda.nw_forward,
+           "traceback": nw_cuda.traceback}
+# What each kernel replaces: nw_stats_batch_pallas_pipe4, _pipe3, _pipe2,
+# _pipe and nw_stats_batch_pallas; nw_forward_batch_pallas_pipe5 and
+# nw_forward_batch_pallas; the jitted jnp traceback_batch (not Pallas)
 REPLACES = {
-    "nw_stats": (1953, 1104, 1449, 1528, 1619),
-    "nw_forward": (2307, 248),
+    "nw_stats": [f"imsame_tpu/ops/nw_pallas.py:{n}"
+                 for n in (1953, 1104, 1449, 1528, 1619)],
+    "nw_forward": [f"imsame_tpu/ops/nw_pallas.py:{n}" for n in (2307, 248)],
+    "traceback": ["imsame_tpu/ops/traceback.py:136"],
 }
+# the render ladder's batches per bucket under the default 2 GiB budget
+# (TorchEngine._render_sizes): nw_forward's and the traceback's cases
+RENDER_BATCHES = {128: (2048,), 256: (2048,), 512: (1024,), 1024: (256,),
+                  2048: (64, 8), 3072: (24, 8)}
 
 
 def synth_pair(n: int, read_len: int, match_frac: float, seed: int):
@@ -447,6 +472,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean milliseconds of fn() over reps launches, after one warm-up,
+    each timed alone after a 128 MiB write has evicted the 50 MB L2: the
+    launch finds its inputs in device memory, as the render's traceback
+    finds most of the backpointers F wrote before it."""
+    flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def timed_once(fn):
     """(fn(), milliseconds of that one call by CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -569,6 +614,64 @@ def check_case(cases, name, args, Lb, *, reps=5, timed=None, note="",
     del want
 
 
+def traceback_bound(tb, Lb: int):
+    """(ms, "bytes") for a traceback call, by bound()'s convention: a
+    32-byte sector of bp read per move (sum of n_steps), best_i / best_j
+    read, the chain and the five stats written, over HBM_BPS.  The walk
+    is a chain of dependent loads, so latency (max n_steps round trips)
+    bounds it long before bytes do."""
+    B = tb.chain.shape[0]
+    moves = int(tb.n_steps.clamp(min=0).long().sum())
+    return (32 * moves + 8 * B + B * 2 * Lb * 4 + 20 * B) / HBM_BPS * 1e3, \
+        "bytes"
+
+
+def check_traceback(cases, args, Lb, *, reps=5, timed=None, note="",
+                    plain_B=None):
+    """Hold the traceback kernel against the plain traceback_batch on the
+    card, on nw_forward's outputs (the kernel's, launched uncounted) for
+    the pairs `args`: as check_case, one plain call on the first plain_B
+    pairs (default: all), timed; the kernel on the whole batch, then on
+    its first B pairs for each B in `timed`, each against the same plain
+    result and timed with L2 flushed before each launch (cuda_ms_cold)
+    and repeated (cuda_ms: the words walked stay in L2).  Prints
+    max(n_steps), the microseconds a move of the longest walk and the
+    bound."""
+    bp, _, bi, bj = nw_cuda.launch("nw_forward", *args, IGAP, EGAP,
+                                   max_len=Lb)
+    n = bp.shape[0]
+    pb = plain_B or n
+    want, plain_ms = timed_once(
+        lambda: traceback_batch(bp[:pb], bi[:pb], bj[:pb], max_len=Lb))
+    err = max_abs_err(
+        [g[:pb] for g in nw_cuda.traceback(bp, bi, bj, max_len=Lb)], want)
+    for b in sorted(set(timed or (n,)), reverse=True):
+        part = (bp[:b], bi[:b], bj[:b])
+        got = nw_cuda.traceback(*part, max_len=Lb)
+        torch.cuda.synchronize()
+        k = min(b, pb)
+        err = max(err, max_abs_err([g[:k] for g in got],
+                                   [w[:k] for w in want]))
+        ms = cuda_ms_cold(lambda: nw_cuda.traceback(*part, max_len=Lb), reps)
+        warm_ms = cuda_ms(lambda: nw_cuda.traceback(*part, max_len=Lb), reps)
+        top = b == max(timed or (n,))
+        steps = int(got.n_steps.max())
+        b_ms, b_by = traceback_bound(got, Lb)
+        del got
+        cases.append(dict(kernel="traceback", L=Lb, B=b, max_abs_err=err,
+                          ms=ms, warm_ms=warm_ms,
+                          plain_ms=plain_ms if top else None,
+                          plain_B=pb, bound_ms=b_ms, bound_by=b_by,
+                          max_n_steps=steps, note=note))
+        print(f"traceback  L={Lb} B={b}{note}: equal, kernel {ms:.3f} ms "
+              f"(L2 flushed; {warm_ms:.3f} ms repeated on warm L2)"
+              + (f", plain {plain_ms:.3f} ms (B={pb})" if top else "")
+              + f", max(n_steps) {steps}, {1e3 * ms / max(steps, 1):.2f} us"
+              f" a move, bound {1e3 * b_ms:.3f} us ({b_by}) = "
+              f"{100 * b_ms / ms:.2f} %")
+    del want, bp
+
+
 TIE_KINDS = ("identical", "homopolymer", "period2", "mismatch", "prefix")
 
 
@@ -628,21 +731,22 @@ def kernel_cases(rng):
     X, Y, xlen, ylen = mixed_pairs(rng, 4)
     xlen[:] = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
     ylen[:] = torch.tensor([0, 7, 1, L], dtype=torch.int32)
-    for name in KERNELS:
+    for name in (*KERNELS, "traceback"):
         yield name, (X, Y, xlen, ylen), L, dict(reps=3, note=" [lengths 0, 1]")
     for Lb in (128, L):
         X, Y, xlen, ylen = mixed_pairs(rng, 8, Lb)
         for t, v in zip((xlen, ylen), degenerate_lengths(Lb)):
             t[:] = torch.tensor(v, dtype=torch.int32)
-        for name in KERNELS:
+        for name in (*KERNELS, "traceback"):
             yield name, (X, Y, xlen, ylen), Lb, dict(
                 reps=3, note=" [empty, over-long]")
     # tie-heavy pairs, where the best cell's tie-break decides; nw_forward
-    # also across 4 and 12 strips handing off
+    # and the traceback also across 4 and 12 strips handing off
     for Lb in (L, 512, 1024, 3072):
         ties = [np.concatenate(a) for a in
                 zip(*(tie_pairs(kind, Lb) for kind in TIE_KINDS))]
-        for name in KERNELS if Lb <= 512 else ("nw_forward",):
+        for name in ((*KERNELS, "traceback") if Lb <= 512
+                     else ("nw_forward", "traceback")):
             yield name, to_cuda(*ties), Lb, dict(reps=3, note=" [ties]")
     # the short path's shapes (as measured since the 256-bucket port)
     for name, B in (("nw_stats", 256), ("nw_stats", 2048),
@@ -655,7 +759,8 @@ def kernel_cases(rng):
         yield "nw_stats", long_pairs(rng, B + 8, Lb, True), Lb, dict(
             timed=(B, 256))
     # the render ladder's top chunk and its 8-pair tail
-    for Lb, B in zip(LONG, (1024, 256, 64, 24)):
+    for Lb in LONG:
+        B = RENDER_BATCHES[Lb][0]
         yield "nw_forward", long_pairs(rng, B + 8, Lb, True), Lb, dict(
             timed=(B, 8))
     # past the pairs resident on the card: nw_stats's warps loop over
@@ -688,13 +793,26 @@ def kernel_cases(rng):
         ("nw_stats", 1024, 8, long_pairs, " [nw_stats_batch_pallas]"),
     ):
         yield name, make(rng, B, Lb), Lb, dict(reps=3, note=note)
+    # the traceback on F's outputs at the render ladder's batches (past
+    # 256 with the 8 degenerate pairs appended, as F's cases), then past
+    # 2^31 bp words (3072 / 272 + 8 pairs: 5.3 G words, 64-bit offsets)
+    for Lb, sizes in RENDER_BATCHES.items():
+        B = sizes[0]
+        pairs = (mixed_pairs(rng, B, Lb) if Lb <= L
+                 else long_pairs(rng, B + 8, Lb, True))
+        yield "traceback", pairs, Lb, dict(timed=sizes)
+    yield "traceback", long_pairs(rng, 272 + 8, 3072, True), 3072, dict(
+        reps=2, timed=(272,), note=" [> 2^31 words]")
 
 
 def phase_kernels() -> list:
     """Each kernel against its plain version, bit for bit."""
     cases = []
     for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
-        check_case(cases, name, args, Lb, **opts)
+        if name == "traceback":
+            check_traceback(cases, args, Lb, **opts)
+        else:
+            check_case(cases, name, args, Lb, **opts)
     for Lb in (128, L) + LONG:
         print(f"resident pairs nw_stats L={Lb}: "
               f"{nw_cuda.resident_pairs('nw_stats', Lb)}, nw_forward: "
@@ -779,21 +897,40 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
         print(f"{who}:")
         sass_loops(so, who, out_dir)
     rows = []
+    skipped = 0
     for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
-        runs = {
-            "parent": lambda: pmod.launch(name, *args, IGAP, EGAP,
-                                          max_len=Lb),
-            "new": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
-                                          max_len=Lb),
-        }
+        cells = real_cells(args, Lb)
+        if name == "traceback":
+            if not hasattr(pmod, "launch_traceback"):
+                skipped += 1
+                continue
+            # both sides walk this tree's F outputs
+            bp, _, bi, bj = nw_cuda.launch("nw_forward", *args, IGAP, EGAP,
+                                           max_len=Lb)
+            runs = {"parent": lambda: pmod.launch_traceback(
+                        bp, bi, bj, max_len=Lb),
+                    "new": lambda: nw_cuda.launch_traceback(
+                        bp, bi, bj, max_len=Lb)}
+            tb = TracebackResult(*runs["new"]())
+            b_ms, b_by = traceback_bound(tb, Lb)
+            rate = f"max(n_steps) {int(tb.n_steps.max())}"
+        else:
+            runs = {
+                "parent": lambda: pmod.launch(name, *args, IGAP, EGAP,
+                                              max_len=Lb),
+                "new": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
+                                              max_len=Lb),
+            }
+            b_ms, b_by = bound(name, args, Lb)
+            rate = None
         err = max_abs_err(runs["new"](), runs["parent"]())
         reps = opts.get("reps", 5)
         t = {"parent": [], "new": []}
         for who in ("parent", "new", "new", "parent"):
             t[who].append(cuda_ms(runs[who], reps))
         pm, nm = (sum(t[w]) / 2 for w in ("parent", "new"))
-        cells = real_cells(args, Lb)
-        b_ms, b_by = bound(name, args, Lb)
+        rate = rate or (f"{cells / pm / 1e6:.2f} -> {cells / nm / 1e6:.2f} "
+                        "G cells/s")
         rows.append(dict(kernel=name, L=Lb, B=args[0].shape[0],
                          note=opts.get("note", ""), parent_ms=t["parent"],
                          new_ms=t["new"], max_abs_err=err, cells=cells,
@@ -801,9 +938,11 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
         print(f"ab {name:10s} L={Lb} B={args[0].shape[0]}"
               f"{opts.get('note', '')}: equal to parent; parent "
               f"{pm:.3f} ms, new {nm:.3f} ms, new/parent {nm / pm:.3f}; "
-              f"{cells / pm / 1e6:.2f} -> {cells / nm / 1e6:.2f} G cells/s;"
-              f" bound {b_ms:.3f} ms ({b_by})")
-        del args
+              f"{rate}; bound {b_ms:.3f} ms ({b_by})")
+        del args, runs
+    if skipped:
+        print(f"ab traceback: {skipped} cases skipped: {parent} has no "
+              "traceback kernel (ops/nw_cuda.py launch_traceback)")
     for Lb in (128, L) + LONG:
         print(f"resident pairs L={Lb}: " + ", ".join(
             f"{k} parent {resident(pmod, k, Lb)}, new "
@@ -846,13 +985,19 @@ def warm(label: str, fn):
 
 
 def zero_counts() -> None:
-    nw_cuda.nw_stats.launches = 0
-    nw_cuda.nw_forward.launches = 0
+    for fn in COUNTED.values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {"nw_stats": nw_cuda.nw_stats.launches,
-            "nw_forward": nw_cuda.nw_forward.launches}
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def check_render_launches(label: str, launches: dict) -> None:
+    """A rendering path walks every F chunk with one traceback launch."""
+    if launches["traceback"] != launches["nw_forward"]:
+        raise AssertionError(f"{label}: traceback launches differ from "
+                             f"nw_forward's: {launches}")
 
 
 def phase_slice(keep: dict) -> dict:
@@ -884,6 +1029,7 @@ def phase_slice(keep: dict) -> dict:
         raise AssertionError(f"20k accepted {res.accepted} != {ACCEPTED_20K}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    check_render_launches("20k", launches)
     if [a.qread for a in res.records] != sorted({a.qread for a in res.records}):
         raise AssertionError("records are not one per read in read order")
 
@@ -1000,6 +1146,7 @@ def phase_long(cases: list, keep: dict) -> dict:
         raise AssertionError("a second long compare gave another report")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    check_render_launches("long", launches)
     if (3072, 24) not in shapes.get("nw_forward", []):
         raise AssertionError("nw_forward ran no 24-pair chunk at L = 3072")
     return launches
@@ -1021,9 +1168,30 @@ def long_pair_np(n: int, seed: int):
     return q, [db[k] for k in perm], perm
 
 
+def checked_traceback(checked: list):
+    """Wrap the render resolve's traceback kernel so that the first chunk
+    of each bucket is also walked by the plain traceback_batch on the
+    card, which its six outputs must equal; appends (L, B, max(n_steps))
+    of each held chunk to `checked`.  Returns a function that restores
+    the kernel's wrapper."""
+    real = resolve.traceback
+
+    def check(bp, best_i, best_j, *, max_len):
+        got = real(bp, best_i, best_j, max_len=max_len)
+        if all(c[0] != max_len for c in checked):
+            want = traceback_batch(bp, best_i, best_j, max_len=max_len)
+            max_abs_err(got, want)
+            checked.append((max_len, bp.shape[0], int(want.n_steps.max())))
+        return got
+
+    resolve.traceback = check
+    return lambda: setattr(resolve, "traceback", real)
+
+
 def phase_long20k(cases: list, keep: dict) -> dict:
-    """The long 20k compare; leaves its query, engine, result and the
-    copies' permutation in keep["long20k"] for phase 9."""
+    """The long 20k compare and render of its 10,000 accepts; leaves its
+    query, engine, result and the copies' permutation in keep["long20k"]
+    for phase 9."""
     t0 = time.perf_counter()
     qr, dbr, perm = long_pair_np(20000, seed=2024)
     q, db = reads_to_seqinfo(qr), reads_to_seqinfo(dbr)
@@ -1039,12 +1207,23 @@ def phase_long20k(cases: list, keep: dict) -> dict:
         res = eng.compare(q)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
+        compare_launches = read_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t4 = time.perf_counter()
+        report = eng.render_report(q, res)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
         launches = read_counts()
     finally:
         restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"long20k: engine init {t2 - t1:.3f} s, compare {t3 - t2:.3f} s, "
           f"accepted {res.accepted}, candidates {res.n_candidates}, "
-          f"nw_cells {res.nw_cells}, launches {launches}")
+          f"nw_cells {res.nw_cells}, launches {compare_launches}")
+    print(f"long20k render: {t5 - t4:.3f} s, {len(res.records)} records, "
+          f"report {len(report)} B, sha256 "
+          f"{hashlib.sha256(report).hexdigest()}, peak device memory "
+          f"{peak:.2f} GiB, launches (compare and render) {launches}")
     print("long20k phases: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(res.timings.items())}))
     print("long20k stages: " + json.dumps(eng.stage_stats))
@@ -1053,7 +1232,21 @@ def phase_long20k(cases: list, keep: dict) -> dict:
     print_shapes("long20k", shapes)
     assert_checked(shapes, cases)
     res_w, t_c = warm("long20k compare", lambda: eng.compare(q))
-    print(f"long20k warm (profiled): compare {t_c:.3f} s")
+    report_w, t_r = warm("long20k render",
+                         lambda: eng.render_report(q, res_w))
+    print(f"long20k warm (profiled): compare {t_c:.3f} s, render {t_r:.3f} s")
+    # once more with the plain traceback beside the kernel on the first
+    # chunk of each bucket (the chains are made anew)
+    for rec in res_w.records:
+        rec.chain = None
+    checked = []
+    restore = checked_traceback(checked)
+    try:
+        report_c = eng.render_report(q, res_w)
+    finally:
+        restore()
+    print("long20k render chains equal the plain traceback's on the first "
+          "chunk of each bucket, (L, B, max(n_steps)): " + json.dumps(checked))
     nm = len(qr) // 2
     own = [perm[s] == r and r < nm for r, s in res.pairs]
     print(f"long20k: {sum(own)} accepted pairs are a query read and its copy")
@@ -1063,8 +1256,16 @@ def phase_long20k(cases: list, keep: dict) -> dict:
             f"long20k accepted {res.accepted} != {nm} own copies; "
             f"first missing query reads {missing}"
         )
-    if launches["nw_stats"] < 1:
-        raise AssertionError(f"nw_stats was not launched: {launches}")
+    if len(res.records) != nm or report_w != report or report_c != report:
+        raise AssertionError(f"long20k render: {len(res.records)} records, "
+                             "or the renders' reports differ")
+    if sorted(c[0] for c in checked) != sorted(
+            {Lb for Lb, _ in shapes["nw_forward"]}):
+        raise AssertionError(f"long20k render: chains held at {checked}, "
+                             f"F launched at {shapes['nw_forward']}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    check_render_launches("long20k", launches)
     return launches
 
 
@@ -1238,6 +1439,7 @@ def phase_sweep() -> dict:
                                  f"{runner.failures}")
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel was not launched: {launches}")
+        check_render_launches("sweep", launches)
 
         serial_check(samples, out, stats)
 
@@ -1333,6 +1535,7 @@ def wide_part(label: str, db: SeqInfo, q: SeqInfo, check, anchors=()) -> dict:
     check(eng, res, report)
     if min(launches.values()) < 1:
         raise AssertionError(f"{label}: a kernel was not launched: {launches}")
+    check_render_launches(label, launches)
     res_w, t_c = warm(f"{label} compare", lambda: eng.compare(q))
     report_w, t_r = warm(f"{label} render", lambda: eng.render_report(q, res_w))
     print(f"{label} warm (profiled): compare {t_c:.3f} s, render {t_r:.3f} s")
@@ -1477,7 +1680,7 @@ def phase_enum(cases: list, keep: dict) -> dict:
     same results as the host gate (and the JAX hashes), the candidate
     triples on the card, then host and enumeration in turns on warm
     engines, and a traced run of each enumerated compare."""
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
 
     def count():
         for k, v in read_counts().items():
@@ -1555,8 +1758,9 @@ def phase_enum(cases: list, keep: dict) -> dict:
           "index (wide-db has the wide one) and at most ENUM_MAX_ROWS "
           "padded query rows (wide-query has 2^21)")
     print(f"enum launches {launches}")
-    if launches["nw_stats"] < 1 or launches["nw_forward"] < 1:
+    if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    check_render_launches("enum", launches)
     return launches
 
 
@@ -1596,6 +1800,7 @@ def mesh_run(label: str, eng: TorchEngine, q: SeqInfo, launches: dict,
     n = read_counts()
     for k, v in n.items():
         launches[k] += v
+    check_render_launches(label, n)
     print(f"{label}: compare {t1 - t0:.3f} s, render {t2 - t1:.3f} s, "
           f"accepted {res.accepted}, candidates {res.n_candidates}, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -1628,7 +1833,7 @@ def phase_mesh(cases: list, work: dict) -> dict:
     pairs.  With two cards or more, also the 20k on "auto" over them and
     a compare on device "cuda:1"."""
     t_phase = time.perf_counter()
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     shapes = {}
     restore = record_shapes(shapes)
     try:
@@ -1705,8 +1910,9 @@ def phase_mesh(cases: list, work: dict) -> dict:
               f"has {n_cards}")
     print(f"mesh launches {launches}, phase wall "
           f"{time.perf_counter() - t_phase:.1f} s")
-    if launches["nw_stats"] < 1 or launches["nw_forward"] < 1:
+    if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    check_render_launches("mesh", launches)
     return launches
 
 
@@ -1802,6 +2008,7 @@ def config3_align(label: str, eng: TorchEngine, q: SeqInfo) -> dict:
     out.update(slice_walls=walls, accepted=accepted, candidates=n_cands,
                nw_cells=nw_cells, reads_per_s_align=n / out["align_seconds"],
                launches=read_counts())
+    check_render_launches(label, out["launches"])
     # the engine's phase timer sums over its compares: the 10 slices
     print(f"{label} phases: " + json.dumps(
         {k: round(v, 4) for k, v in sorted(eng.timer.items())}))
@@ -1842,7 +2049,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     paths.append(phase_mesh(cases, work))
     kernels = []
-    for name, lines in REPLACES.items():
+    for name, where in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]
         # the largest case whose plain call ran on the same batch
         top = max((c for c in mine
@@ -1851,13 +2058,12 @@ def main(argv) -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"imsame_tpu_torch/csrc/{name}.cu",
-            "replaces": ", ".join(f"imsame_tpu/ops/nw_pallas.py:{n}"
-                                  for n in lines),
+            "replaces": ", ".join(where),
             "launches": sum(p[name] for p in paths),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            # no PyTorch call computes S or F
+            # no PyTorch call computes S, F or the traceback
             "library_ms": None,
             "L": top["L"], "B": top["B"], "plain_B": top["plain_B"],
         })

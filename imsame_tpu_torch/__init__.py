@@ -12,8 +12,8 @@ Layout (mirrors imsame_tpu/):
   index/     flat sorted k-mer index
   native/    the host C runtime (host.c, a copy of imsame_tpu's) and its
              ctypes loader
-  ops/       device compute: extension gate (torch), NW aligners (CUDA
-             kernels in csrc/ + plain torch versions), traceback (torch)
+  ops/       device compute: extension gate (torch), NW aligners and
+             traceback (CUDA kernels in csrc/ + plain torch versions)
   csrc/      hand-written CUDA kernels for sm_90a (H100)
   pipeline   the engine (TorchEngine), on one device or a mesh
   parallel/  the device mesh and the sharded engine steps

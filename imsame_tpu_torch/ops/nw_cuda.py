@@ -1,11 +1,14 @@
-"""Hand-written CUDA kernels for the two NW functions, and their wrappers.
+"""Hand-written CUDA kernels for the NW functions and the traceback, and
+their wrappers.
 
   nw_stats    csrc/nw_stats.cu    function S (stats-only NW): best cell +
                                   path length/identities per pair
   nw_forward  csrc/nw_forward.cu  function F (forward NW with packed
                                   backpointer words) per pair
+  traceback   csrc/traceback.cu   the walk back over F's words from each
+                                  pair's best cell: path stats and chain
 
-Both sources (and the header they share, csrc/nw_common.cuh) are
+The three sources (and the header they share, csrc/nw_common.cuh) are
 compiled on first use by ``nvcc`` for ``sm_90a`` (one process per source,
 run together) and linked into one shared library with a plain C interface
 in the repository's ``build/`` directory, keyed by the sources' hash, and
@@ -13,21 +16,22 @@ loaded with ctypes.  Nothing is built or imported at
 module import.
 
 Each wrapper takes the plain torch version's arguments.  A CPU tensor
-goes to the plain version in ops/nw.py; a CUDA tensor launches the kernel
-on the current stream, or raises: there is no fallback.  ``launch``
-validates device, dtype, shape, contiguity and alignment, allocates the
-outputs (and, for ``nw_stats`` past L = 256, its strip-boundary scratch)
-with ``torch.empty`` and raises if the launcher returns a CUDA error; each
+goes to the plain version (ops/nw.py, ops/traceback.py); a CUDA tensor
+launches the kernel on the current stream, or raises: there is no
+fallback.  ``launch`` and ``launch_traceback`` validate device, dtype,
+shape, contiguity and alignment, allocate the outputs (and, for
+``nw_stats`` past L = 256, its strip-boundary scratch) with
+``torch.empty`` and raise if the launcher returns a CUDA error; each
 wrapper adds one to its ``launches`` attribute per kernel launch.
 
-Both kernels are instantiated for every length bucket of
+The NW kernels are instantiated for every length bucket of
 ``Config.length_buckets``.  Up to L = 256 a launch has one warp per pair.
 Past it ``nw_stats`` walks a pair's rows in strips of 256 on one warp,
 handing each strip's bottom boundary to the next through a scratch of 2 x
 2L x 16 bytes per warp, so a launch holds at most as many warps as fit on
 the card at once (``resident_pairs``) and each warp loops over pairs;
 ``nw_forward`` runs a pair's strips at once on the warps of one block,
-one block per pair.
+one block per pair.  ``traceback`` has one warp per pair at every bucket.
 """
 
 from __future__ import annotations
@@ -45,12 +49,13 @@ import torch
 from ..config import Config
 from ..native import BUILD_DIR
 from .nw import NWResult, NWStatsResult, nw_forward_batch, nw_stats_batch
+from .traceback import TracebackResult, traceback_batch
 
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-_SOURCES = ("nw_stats.cu", "nw_forward.cu")
-_HEADERS = ("nw_common.cuh",)  # included by both sources
+_SOURCES = ("nw_stats.cu", "nw_forward.cu", "traceback.cu")
+_HEADERS = ("nw_common.cuh",)  # included by every source
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,7 +94,7 @@ def _run(cmds: list, timeout: int) -> str:
 
 
 def build() -> dict:
-    """Compile both kernels unless a library for their sources exists.
+    """Compile the kernels unless a library for their sources exists.
     Returns {"path", "seconds", "log"} (log: ptxas register and spill
     report of a fresh build).  Raises RuntimeError on a failed build."""
     srcs = [os.path.join(_CSRC, s) for s in _SOURCES]
@@ -138,6 +143,8 @@ def _load() -> ctypes.CDLL:
     ]
     lib.nw_forward_launch.restype = i
     lib.nw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
+    lib.traceback_launch.restype = i
+    lib.traceback_launch.argtypes = [p, p, p, i, i, p, p, p, p, p, p, p]
     for name in ("nw_stats_slots", "nw_forward_resident"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i]
@@ -260,3 +267,56 @@ def nw_forward(X, Y, xlen, ylen, igap: int, egap: int, *, max_len: int):
 
 
 nw_forward.launches = 0
+
+
+def launch_traceback(bp, best_i, best_j, *, max_len: int):
+    """One launch of the traceback kernel on CUDA tensors (bp [B, 2L-1, L]
+    int32 as nw_forward writes it, best_i / best_j [B] int32); returns its
+    six raw outputs (length, identities, igaps, egaps, chain, n_steps) and
+    counts nothing.  chip_smoke.py calls this directly to time another
+    checkout's kernel beside this one."""
+    dev = bp.device
+    B = bp.shape[0] if bp.dim() == 3 else 0
+    L = max_len
+    if L not in LENGTHS or B == 0:
+        raise ValueError(f"bp must be [B > 0, 2L-1, L] with L == max_len "
+                         f"in {LENGTHS}")
+    for name, t, shape in (("bp", bp, (B, 2 * L - 1, L)),
+                           ("best_i", best_i, (B,)),
+                           ("best_j", best_j, (B,))):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bp on {dev}")
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    with torch.cuda.device(dev):
+        # the kernel writes every word: stats, chain entries, -1 tail
+        stats = [torch.empty(B, dtype=torch.int32, device=dev)
+                 for _ in range(5)]
+        chain = torch.empty((B, 2 * L), dtype=torch.int32, device=dev)
+        err = _lib().traceback_launch(
+            bp.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), B, L,
+            *[o.data_ptr() for o in stats], chain.data_ptr(),
+            _stream_ptr(dev))
+    if err:
+        raise RuntimeError(f"traceback launch failed: cudaError_t {err}")
+    length, identities, igaps, egaps, n_steps = stats
+    return length, identities, igaps, egaps, chain, n_steps
+
+
+def traceback(bp, best_i, best_j, *, max_len: int):
+    """The traceback over nw_forward's per-pair bp words.  Returns
+    TracebackResult (length, identities, igaps, egaps [B] int32; chain
+    [B, 2L] int32; n_steps [B] int32), bit-equal to ops/traceback.py
+    traceback_batch."""
+    if bp.device.type == "cpu":
+        return traceback_batch(bp, best_i, best_j, max_len=max_len)
+    if bp.device.type != "cuda":
+        raise ValueError(f"traceback runs on cpu or cuda, not {bp.device}")
+    outs = launch_traceback(bp, best_i, best_j, max_len=max_len)
+    traceback.launches += 1
+    return TracebackResult(*outs)
+
+
+traceback.launches = 0

@@ -2,9 +2,9 @@
 
 The host ships only the pair index vectors (query read, db read); the
 device gathers the 2-bit-packed read rows already resident on it, unpacks
-them to code matrices and runs the aligner kernels of ops/nw_cuda.py (the
-plain torch versions of ops/nw.py on a CPU device).  Per alignment the
-host-to-device traffic is 8 bytes instead of 2*L.
+them to code matrices and runs the kernels of ops/nw_cuda.py (the plain
+torch versions of ops/nw.py and ops/traceback.py on a CPU device).  Per
+alignment the host-to-device traffic is 8 bytes instead of 2*L.
 
 Where the JAX engine (imsame_tpu/ops/resolve.py) picks one of several
 Pallas layouts by batch divisibility and length bucket, each call here
@@ -20,8 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .extend_packed import BASES_PER_WORD
-from .nw_cuda import TILE, nw_forward, nw_stats
-from .traceback import traceback_batch
+from .nw_cuda import TILE, nw_forward, nw_stats, traceback
 
 
 def unpack_rows(packed: torch.Tensor, idx: torch.Tensor, L: int) -> torch.Tensor:
@@ -67,9 +66,12 @@ def nw_traceback_rows(
     *,
     max_len: int,
 ) -> ResolveNWResult:
-    """Render resolve: the backpointer kernel (function F) and the batched
-    traceback on the per-pair bp layout; returns per-pair path stats plus
-    the traceback chain.  The nw_forward kernel replaces
+    """Render resolve: the backpointer kernel (function F) and the
+    traceback kernel on the per-pair bp layout; returns per-pair path
+    stats plus the traceback chain.  On the card that is two launches and
+    the row gather, with nothing read back to the host.  The traceback
+    kernel replaces the jitted traceback_batch of
+    imsame_tpu/ops/traceback.py; the nw_forward kernel replaces
     nw_forward_batch_pallas_pipe5 (batches that are multiples of 256:
     the 128-512 buckets' ladders, 1024's 256) and
     nw_forward_batch_pallas (the other batches: 64/8 pairs at 2048, 24/8
@@ -77,7 +79,7 @@ def nw_traceback_rows(
     B = r.shape[0]
     X, Y, xl, yl = _gather(qp, dp, _pad_to_tile(r), _pad_to_tile(s), qlen, dlen, max_len)
     res = nw_forward(X, Y, xl, yl, igap, egap, max_len=max_len)
-    tb = traceback_batch(res.bp, res.best_i, res.best_j, max_len=max_len)
+    tb = traceback(res.bp, res.best_i, res.best_j, max_len=max_len)
     return ResolveNWResult(
         length=tb.length[:B],
         identities=tb.identities[:B],

@@ -14,9 +14,11 @@ classify the move (diagonal / gap-in-X / gap-in-Y by the reference's
 
 The chain of visited cells is also recorded so the host can reconstruct the
 two right-aligned report buffers for accepted pairs without re-running the
-DP (io/reconstruct.py).  Each loop step tests on the host whether any pair
-is still walking (one device sync per step); diagonal runs are jumped
-whole, so a chain has tens of steps.
+DP (io/reconstruct.py).  Diagonal runs are jumped whole, so a chain has
+tens to hundreds of steps.  Each loop step tests on the host whether any
+pair is still walking (one device sync per step), so this is the CPU path
+and the test oracle: on the card, ops/nw_cuda.py traceback runs the
+csrc/traceback.cu kernel, one launch a batch with no host sync.
 """
 
 from __future__ import annotations
