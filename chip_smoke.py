@@ -12,14 +12,22 @@ engines, then frees them before 7), and 10, which runs last (it reuses
   1. device  -- requires torch.cuda; prints the card's name and power limit
                 (nvidia-smi), its SMs and max SM clock, and the torch /
                 CUDA versions.
-  2. build   -- compiles the native host runtime (gcc) and the three
-                kernels, nw_stats, nw_forward and traceback (nvcc, sm_90a,
-                one process per source) from this checkout; prints each
-                build's seconds and the ptxas register report.
-  3. kernels -- nw_stats, nw_forward and traceback against their plain
-                torch versions on the same CUDA tensors (kernel_cases;
-                the traceback walks the nw_forward kernel's outputs);
-                every output must be exactly equal (integer DP).  The
+  2. build   -- compiles the native host runtime (gcc) and the four
+                kernels, nw_stats, nw_forward, traceback and gate (nvcc,
+                sm_90a, one process per source) from this checkout; prints
+                each build's seconds and the ptxas register report.
+  3. kernels -- nw_stats, nw_forward, traceback and gate against their
+                plain torch versions on the same CUDA tensors
+                (kernel_cases, gate_cases; the traceback walks the
+                nw_forward kernel's outputs); every output must be exactly
+                equal (integer DP; the gate's pass and exact words bit for
+                bit).  The gate (check_gate) on the 20k workload's rows
+                and on 2,000 long reads a side, real and random
+                candidates, every candidate format and both index
+                payloads: full chunks of 2^21 at the windows 256 and 64
+                and 87,360 at 3072 (some with padding slots), and 128,
+                512, 1024 and 2048 once each; timed with L2 flushed before
+                each launch, with its bytes bound (gate_bound).  The
                 traceback at the render ladder's batches of every bucket
                 (2048 at 128 and 256, 1024, 256, 64 and 8, 24 and 8),
                 at 3072 / 272 (past 2^31 bp words: 64-bit offsets), on the
@@ -148,9 +156,15 @@ A long path that launches a kernel past L = 256 on more pairs than the
 card holds at once fails unless phase 3 held such a batch at that
 bucket.  Each path runs once more on the warm engine, traced by
 torch.profiler: a "profile" line gives that run's device-busy share and
-leading device work.  Each path's kernel launches are counted from 0 just
-before it and read just after; on a path that renders, the traceback
-must run once for each nw_forward launch.  The last three lines are a
+leading device work, then collects the trace's garbage (gc.collect), so
+that no later timed compare pays the cyclic collector's pause for it;
+timed compares report that pause and their CPU seconds (host.gc,
+host.cpu).  Each path's kernel launches are counted from 0 just
+before it and read just after, and every kernel, the gate included, must
+have launched; on a path that renders, the traceback must run once for
+each nw_forward launch; no path may run the plain gate on CUDA tensors
+(PLAIN_GATE_ON_CARD).  The phases lines split the gate's host dispatch
+into gate.encode, gate.upload and gate.launch.  The last three lines are a
 JSON object with each kernel's launches on those paths, error, times and
 bound, the card's name and power limit, then {"ok": true, "device": ...}.
 
@@ -175,6 +189,7 @@ and SASS listings to DIR if given; it runs no plain version and no
 path.
 """
 
+import gc
 import hashlib
 import importlib.util
 import json
@@ -198,10 +213,16 @@ from imsame_tpu_torch.io.fasta import (
     SeqInfo, parse_fasta_bytes, read_fasta, read_fasta_stream,
     revcomp_fasta_bytes,
 )
-from imsame_tpu_torch.ops import enum_gate, nw, nw_cuda, resolve
+from imsame_tpu_torch.ops import (
+    candidates, enum_gate, gate_cuda, nw, nw_cuda, resolve,
+)
+from imsame_tpu_torch.ops.extend import raw_score_threshold
+from imsame_tpu_torch.ops import extend_packed as ext
 from imsame_tpu_torch.ops.traceback import TracebackResult, traceback_batch
 from imsame_tpu_torch.orchestrator import AllVsAllRunner, list_samples, make_jobs
-from imsame_tpu_torch.pipeline import PACKED_MAX_READS, TorchEngine, build_flat
+from imsame_tpu_torch.pipeline import (
+    GATE_MAX_ELEMENTS, PACKED_MAX_READS, TorchEngine, build_flat,
+)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
 from util_synth import mutate, random_read, write_fasta  # noqa: E402
@@ -326,16 +347,24 @@ KERNELS = {  # the NW kernels, on code rows: (wrapper, plain version)
 }
 # every kernel's wrapper, whose launches each path counts
 COUNTED = {"nw_stats": nw_cuda.nw_stats, "nw_forward": nw_cuda.nw_forward,
-           "traceback": nw_cuda.traceback}
+           "traceback": nw_cuda.traceback, "gate": gate_cuda.gate}
 # What each kernel replaces: nw_stats_batch_pallas_pipe4, _pipe3, _pipe2,
 # _pipe and nw_stats_batch_pallas; nw_forward_batch_pallas_pipe5 and
-# nw_forward_batch_pallas; the jitted jnp traceback_batch (not Pallas)
+# nw_forward_batch_pallas; the jitted jnp traceback_batch (not Pallas);
+# the jitted jnp extend_packed and the gate functions that reach it
+# (gate_core, flat_gate_packed, flat_gate_seg, flat_gate; not Pallas)
 REPLACES = {
     "nw_stats": [f"imsame_tpu/ops/nw_pallas.py:{n}"
                  for n in (1953, 1104, 1449, 1528, 1619)],
     "nw_forward": [f"imsame_tpu/ops/nw_pallas.py:{n}" for n in (2307, 248)],
     "traceback": ["imsame_tpu/ops/traceback.py:136"],
+    "gate": ["imsame_tpu/ops/extend_packed.py:123"]
+    + [f"imsame_tpu/ops/candidates.py:{n}" for n in (29, 58, 95, 175)],
 }
+# Calls of the plain gate (ops/candidates.py gate_core) on CUDA tensors
+# since the kernels phase: every path must leave it at 0 (the card runs
+# the kernel, never the eager gate).
+PLAIN_GATE_ON_CARD = [0]
 # the render ladder's batches per bucket under the default 2 GiB budget
 # (TorchEngine._render_sizes): nw_forward's and the traceback's cases
 RENDER_BATCHES = {128: (2048,), 256: (2048,), 512: (1024,), 1024: (256,),
@@ -805,6 +834,231 @@ def kernel_cases(rng):
         reps=2, timed=(272,), note=" [> 2^31 words]")
 
 
+GATE_FULL = 1 << 21  # Config.gate_chunks' largest chunk
+
+
+def count_plain_gate() -> None:
+    """Wraps the plain gate's body (ops/candidates.py gate_core, which
+    every plain gate function calls) so that each call on CUDA tensors
+    adds one to PLAIN_GATE_ON_CARD."""
+    real = candidates.gate_core
+
+    def counted(qp, *a, **k):
+        PLAIN_GATE_ON_CARD[0] += qp.is_cuda
+        return real(qp, *a, **k)
+
+    candidates.gate_core = counted
+
+
+def gate_workload(qr, dbr):
+    """The gate's tables on the card for query reads `qr` and db reads
+    `dbr` (code arrays) at their engine's window: (tables, indexes,
+    candidates), where tables = (qp, dp, qlen, dlen, thr) as the engine
+    builds them, indexes = {"packed": the index words, "wide": the
+    (pos, sid, db_start) triple of the same index} and candidates =
+    {"real": every candidate of the k-mer stream, "random": as many of
+    random read ids, index rows (1 % past the table's end) and offsets
+    (0 .. read length), in stream order}, host (rids, hits, qoffs)."""
+    q, db = reads_to_seqinfo(qr), reads_to_seqinfo(dbr)
+    eng = TorchEngine(db, Config(mesh_shape=None), device="cuda")
+    qlens = q.read_lens()
+    row_len = eng._nw_bucket(int(max(qlens.max(), eng.db_read_lens.max())))
+    thr = raw_score_threshold(qlens, db.total_len, eng.cfg.min_e_value)
+    tables = (eng._rows_on_device(q.codes, q.start, qlens, row_len),
+              eng._packed_db_rows(row_len),
+              *to_cuda(qlens.astype(np.int32)), eng._d_dlen,
+              *to_cuda(np.asarray(thr, np.int32)))
+    idx = eng.index
+    indexes = {"packed": eng._d_idx_tab,
+               "wide": to_cuda(np.asarray(idx.pos, np.int32),
+                               np.asarray(idx.sid, np.int32),
+                               np.asarray(db.start, np.int32))}
+    stream = eng._kmer_stream(q)
+    N_r = stream[5][1:] - stream[5][:-1]
+    reads = np.flatnonzero(N_r)
+    real = build_flat(stream, q.start.astype(np.int64), reads,
+                      np.zeros(len(reads), np.int64), N_r[reads])
+    rng = np.random.default_rng(row_len)
+    n = len(real[0])
+    r = rng.integers(0, q.n_seqs, n)
+    qoff = rng.integers(0, qlens[r] + 1)
+    order = np.lexsort((qoff, r))
+    hits = rng.integers(0, int(idx.n_entries * 1.01), n)
+    rand = (r[order].astype(np.int32), hits.astype(np.int32),
+            qoff[order].astype(np.int32))
+    return tables, indexes, {"real": real, "random": rand}, row_len
+
+
+def gate_chunk(cols, take: int, size: int, fmt: str):
+    """The first `take` candidates of host columns (rids, hits, qoffs) as
+    one chunk of `size` slots in format `fmt` ("seg", "two", "three"):
+    (cand, rtab, rbase) on the card, the padding slots zero."""
+    take = min(take, len(cols[0]))
+    rids, hits, qoffs = (c[:take] for c in cols)
+    if fmt == "seg":
+        return to_cuda(*candidates.encode_seg_chunk(rids, qoffs, hits, size))
+    cand = np.zeros((2 if fmt == "two" else 3, size), np.int32)
+    cand[0, :take] = hits
+    if fmt == "two":
+        cand[1, :take] = ((rids.astype(np.uint32) << np.uint32(12))
+                          | qoffs.astype(np.uint32)).view(np.int32)
+    else:
+        cand[1, :take], cand[2, :take] = rids, qoffs
+    return to_cuda(cand) + (None, None)
+
+
+def gate_cases():
+    """Every gate case: (note, W, tables, index payload, (cand, rtab,
+    rbase), headline).  The 20k workload's rows (bucket 256; synth_pair
+    as phase 4) and 2,000 long reads a side (bucket 3072; long_pair_np,
+    seed 11): real and random candidates, in every format and both index
+    payloads, at the windows 256 and 3072 in full chunks (2^21 and the
+    engine's 87,360, GATE_MAX_ELEMENTS // 3072, some with padding slots),
+    at 64 (the small tier) on both, and at 128, 512, 1024 and 2048 once
+    each, at the engine's chunk for that window.  A generator: one
+    workload's tables are alive at a time."""
+    qc, dbc = synth_pair(20000, 250, 0.5, seed=12345)
+    tabs, idx, cols, _ = gate_workload(qc, dbc)
+    full = GATE_FULL
+    for W, src, fmt, ix, n in (
+            (256, "real", "seg", "packed", full),  # the headline case
+            (256, "real", "two", "wide", full),
+            (256, "real", "three", "packed", full),
+            (256, "random", "seg", "wide", full),
+            (256, "random", "two", "packed", full),
+            (256, "random", "three", "wide", full),
+            (64, "real", "seg", "packed", full),
+            (64, "random", "two", "wide", full),
+            (64, "real", "three", "wide", full - 4000),
+            (128, "real", "two", "packed", full)):
+        yield (f" {fmt} {ix} [{src}]", W, tabs, idx[ix],
+               gate_chunk(cols[src], n, full, fmt), W == 256 and n == full
+               and (src, fmt, ix) == ("real", "seg", "packed"))
+    del tabs, idx, cols
+    qr, dbr, _ = long_pair_np(2000, seed=11)
+    tabs, idx, cols, _ = gate_workload(qr, dbr)
+    big = GATE_MAX_ELEMENTS // 3072 // 32 * 32
+    for W, src, fmt, ix, take, size in (
+            (3072, "real", "seg", "packed", big - 37, big),
+            (3072, "real", "two", "wide", big, big),
+            (3072, "real", "three", "packed", big, big),
+            (3072, "random", "seg", "wide", big, big),
+            (3072, "random", "two", "packed", big, big),
+            (3072, "random", "three", "wide", big - 37, big),
+            (64, "real", "seg", "wide", 1 << 20, 1 << 20),
+            (512, "real", "three", "packed", 1 << 19, 1 << 19),
+            (1024, "random", "seg", "packed", 1 << 18, 1 << 18),
+            (2048, "real", "two", "wide", 1 << 17, 1 << 17)):
+        yield (f" {fmt} {ix} [{src}{', padded' if take < size else ''}]",
+               W, tabs, idx[ix], gate_chunk(cols[src], take, size, fmt),
+               False)
+
+
+def walk_lengths(tabs, r, s, qoff, doff, W: int):
+    """Bases each candidate's forward and backward walks compare (the
+    plain walk's stop counts, ops/extend_packed.py), as int64."""
+    qp, dp, qlen, dlen, _ = tabs
+    o = torch.arange(W, dtype=torch.int32, device=qp.device)[None, :]
+    fwd, bwd = ext.match_windows(qp, dp, r, s, qoff, doff, W)
+    flim = torch.minimum(dlen[s] - 1 - doff, qlen[r] - 1 - qoff)
+    S, nf, _ = ext.walk(fwd, flim, ext.SEED_SCORE, o, W)
+    del fwd
+    M = torch.where(o < nf[:, None], S, -(2**30)).amax(dim=1)
+    del S
+    seed = M.clamp(min=ext.SEED_SCORE)[:, None]
+    _, nb, _ = ext.walk(bwd, torch.minimum(doff, qoff) - 13, seed, o, W)
+    return nf.long(), nb.long()
+
+
+def sectors(*words) -> int:
+    """Distinct 32-byte sectors (8 int32 words) among word indexes into
+    one table (int tensors, concatenated)."""
+    return int(torch.unique(torch.cat([w.long() >> 3 for w in words]))
+               .numel())
+
+
+def span_words(row, b0, n, wp: int):
+    """Word indexes into a [rows, wp] table of the bases b0 .. b0 + n - 1
+    of each row (spans of n <= 0 bases read nothing): every word of
+    every span, flat."""
+    keep = n > 0
+    row, b0, n = row[keep].long(), b0[keep].long(), n[keep]
+    lo = row * wp + (b0 >> 4).clamp(0, wp - 1)
+    cnt = row * wp + ((b0 + n - 1) >> 4).clamp(0, wp - 1) - lo + 1
+    first = torch.cumsum(cnt, 0) - cnt
+    step = torch.arange(int(cnt.sum()), device=row.device)
+    return torch.repeat_interleave(lo - first, cnt) + step
+
+
+def gate_bound(tabs, idx_tab, cand, rtab, rbase, W: int):
+    """(ms, "bytes", bases walked) for a gate call: the bytes that the
+    call must move, each once, over HBM_BPS.  The candidate words (and
+    the seg format's 8 bytes a segment) and the output words, and the
+    distinct 32-byte sectors of every table that the call reads: the
+    index entries of the candidates' hits (the packed word, or the wide
+    pos and sid and the db_start of their db reads), thr and qlen of
+    their query reads, dlen of their db reads, and the row words that
+    their two walks cover on either side (walk_lengths on these
+    inputs)."""
+    qp, dp, qlen, dlen, thr = tabs
+    r, hit, qoff = candidates.decode_candidates(cand, rtab, rbase)
+    wide = not isinstance(idx_tab, torch.Tensor)
+    n_idx = (idx_tab[0] if wide else idx_tab).shape[0]
+    hit = hit.clamp(0, n_idx - 1)
+    s, doff = candidates.lookup_index(idx_tab, hit)
+    nf, nb = walk_lengths(tabs, r, s, qoff, doff, W)
+    # the backward walk covers bases off - 12 - nb .. off - 13
+    rows = (sectors(span_words(r, qoff, nf, qp.shape[1]),
+                    span_words(r, qoff - 12 - nb, nb, qp.shape[1]))
+            + sectors(span_words(s, doff, nf, dp.shape[1]),
+                      span_words(s, doff - 12 - nb, nb, dp.shape[1])))
+    table = (2 if wide else 1) * sectors(hit) + 2 * sectors(r) \
+        + (2 if wide else 1) * sectors(s)
+    nbytes = (4 * cand.numel() + (8 * rtab.numel() if rtab is not None else 0)
+              + 32 * (table + rows) + cand.shape[-1] // 4)
+    return nbytes / HBM_BPS * 1e3, "bytes", int((nf + nb).sum())
+
+
+def differing_bits(got, want) -> int:
+    """Bits in which two [2, N/32] int32 word arrays differ."""
+    x = (got ^ want).view(torch.uint8).cpu().numpy()
+    return int(np.unpackbits(x).sum())
+
+
+def check_gate(cases, note, W, tabs, idx_tab, chunk, headline, reps=5):
+    """Hold the gate kernel's wrapper (ops/gate_cuda.py gate) against the
+    plain gate (ops/candidates.py gate_plain) on the card, bit for bit on
+    every word of [2, N/32]:
+    the plain call timed once, the kernel timed with L2 flushed before
+    each launch (cuda_ms_cold), and the bound (gate_bound)."""
+    cand, rtab, rbase = chunk
+    qp, dp, qlen, dlen, thr = tabs
+    args = (qp, dp, qlen, dlen, idx_tab, cand, thr, rtab, rbase)
+    want, plain_ms = timed_once(
+        lambda: candidates.gate_plain(*args, window=W))
+    got = gate_cuda.gate(*args, window=W)
+    torch.cuda.synchronize()
+    err = differing_bits(got, want)
+    if err:
+        raise AssertionError(f"gate W={W}{note}: {err} bits differ from the "
+                             "plain gate")
+    N = want.shape[1] * 32
+    n_pass, n_exact = (int(np.unpackbits(w.view(torch.uint8).cpu().numpy())
+                           .sum()) for w in want)
+    del got, want
+    ms = cuda_ms_cold(lambda: gate_cuda.gate(*args, window=W), reps)
+    b_ms, b_by, walked = gate_bound(tabs, idx_tab, cand, rtab, rbase, W)
+    cases.append(dict(kernel="gate", L=W, B=N, max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, plain_B=N, bound_ms=b_ms,
+                      bound_by=b_by, note=note, headline=headline,
+                      walked=walked))
+    print(f"gate       W={W} N={N}{note}: equal (0 bits differ), kernel "
+          f"{ms:.3f} ms (L2 flushed), plain {plain_ms:.3f} ms, "
+          f"{N / ms / 1e6:.2f} G candidates/s, {walked / N:.1f} bases walked"
+          f" a candidate, {n_pass} pass, {n_exact} exact, bound "
+          f"{b_ms:.3f} ms ({b_by}) = {100 * b_ms / ms:.1f} %")
+
+
 def phase_kernels() -> list:
     """Each kernel against its plain version, bit for bit."""
     cases = []
@@ -813,6 +1067,9 @@ def phase_kernels() -> list:
             check_traceback(cases, args, Lb, **opts)
         else:
             check_case(cases, name, args, Lb, **opts)
+    for case in gate_cases():
+        check_gate(cases, *case)
+        del case
     for Lb in (128, L) + LONG:
         print(f"resident pairs nw_stats L={Lb}: "
               f"{nw_cuda.resident_pairs('nw_stats', Lb)}, nw_forward: "
@@ -978,9 +1235,22 @@ def warm(label: str, fn):
             end = b
     busy /= 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1][1])[:4]
+    # the gate's kernels (csrc/gate.cu: the gate and the seg scans)
+    gate = [v for k, v in per.items()
+            if re.search(r"\b(gate_kernel|seg_totals_kernel|seg_scan_kernel)",
+                         k)]
+    # the trace's events hold reference cycles: collect them here, or
+    # the cyclic collector's pause lands in a later timed compare
+    del prof
+    t_gc = time.perf_counter()
+    n_gc = gc.collect()
+    t_gc = time.perf_counter() - t_gc
     print(f"profile {label}: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f} %, leading: "
-          + "; ".join(f"{k[:48]} {t:.1f} ms ({n})" for k, (n, t) in top))
+          + "; ".join(f"{k[:48]} {t:.1f} ms ({n})" for k, (n, t) in top)
+          + f"; gate kernels {sum(t for _, t in gate):.2f} ms "
+          f"({sum(n for n, _ in gate)}); then gc.collect() {n_gc} objects "
+          f"in {t_gc:.3f} s")
     return out, wall
 
 
@@ -994,10 +1264,14 @@ def read_counts() -> dict:
 
 
 def check_render_launches(label: str, launches: dict) -> None:
-    """A rendering path walks every F chunk with one traceback launch."""
+    """A rendering path walks every F chunk with one traceback launch,
+    and no path runs the plain gate on the card."""
     if launches["traceback"] != launches["nw_forward"]:
         raise AssertionError(f"{label}: traceback launches differ from "
                              f"nw_forward's: {launches}")
+    if PLAIN_GATE_ON_CARD[0]:
+        raise AssertionError(f"{label}: the plain gate ran on CUDA tensors "
+                             f"{PLAIN_GATE_ON_CARD[0]} times")
 
 
 def phase_slice(keep: dict) -> dict:
@@ -1584,7 +1858,7 @@ def phase_wide(work: dict) -> dict:
 
 
 ENUM_PHASES = ("gate.build", "gate.enum", "gate.dispatch", "gate.fetch",
-               "resolve.extend")
+               "resolve.extend", "host.gc", "host.cpu")
 
 
 def enum_engine(host: TorchEngine) -> TorchEngine:
@@ -1597,16 +1871,33 @@ def enum_engine(host: TorchEngine) -> TorchEngine:
     return eng
 
 
+GC_SECONDS = [0.0, 0.0]  # [seconds in the cyclic collector, last start]
+
+
+def gc_clock(phase: str, info: dict) -> None:
+    """A gc.callbacks entry: sums the collector's pauses into
+    GC_SECONDS[0]."""
+    if phase == "start":
+        GC_SECONDS[1] = time.perf_counter()
+    else:
+        GC_SECONDS[0] += time.perf_counter() - GC_SECONDS[1]
+
+
 def timed_compare(eng: TorchEngine, q: SeqInfo):
     """(result, wall s, this compare's phase seconds, peak device GiB) of
-    one compare: the engine's phase timer sums over its compares."""
+    one compare: the engine's phase timer sums over its compares.  The
+    phases also hold host.gc (the cyclic collector's pauses, gc_clock)
+    and host.cpu (the process's CPU seconds, every thread)."""
     before = dict(eng.timer.items())
+    gc0, cpu0 = GC_SECONDS[0], time.process_time()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = eng.compare(q)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     phases = {k: v - before.get(k, 0.0) for k, v in eng.timer.items()}
+    phases["host.gc"] = GC_SECONDS[0] - gc0
+    phases["host.cpu"] = time.process_time() - cpu0
     return res, wall, phases, torch.cuda.max_memory_allocated() / 2**30
 
 
@@ -1640,6 +1931,8 @@ def ab_runs(label: str, host: TorchEngine, eng: TorchEngine, q: SeqInfo):
         res, wall, phases, peak = timed_compare(e, q)
         walls[who].append(wall)
         print_run(f"ab {label} {who}", res, wall, phases, peak)
+        print(f"ab {label} {who} phases: " + json.dumps(
+            {k: round(v, 4) for k, v in sorted(phases.items())}))
     h, e = (sum(walls[k]) / len(walls[k]) for k in ("host", "enum"))
     print(f"ab {label}: host {h:.3f} s, enum {e:.3f} s, enum/host "
           f"{e / h:.3f}")
@@ -2025,15 +2318,19 @@ def config3_align(label: str, eng: TorchEngine, q: SeqInfo) -> dict:
 
 
 def main(argv) -> int:
+    gc.callbacks.append(gc_clock)
     smi = phase_device()
     phase_build()
     if argv[:1] == ["--ab"]:  # python3 chip_smoke.py --ab PARENT [OUT_DIR]
         phase_ab(*argv[1:3])
         return 0
     if argv[:1] == ["--config3"]:  # [--gate-enum]
+        count_plain_gate()
         phase_config3(gate_enum=argv[1:2] == ["--gate-enum"])
         return finish(smi)
+    count_plain_gate()
     cases = phase_kernels()
+    PLAIN_GATE_ON_CARD[0] = 0  # the kernels phase ran it on purpose
     keep = {}  # phases 4-6's workloads and engines, for phase 9
     paths = [phase_slice(keep), phase_long(cases, keep),
              phase_long20k(cases, keep)]
@@ -2051,10 +2348,13 @@ def main(argv) -> int:
     kernels = []
     for name, where in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]
-        # the largest case whose plain call ran on the same batch
-        top = max((c for c in mine
-                   if c["plain_ms"] is not None and c["plain_B"] >= c["B"]),
-                  key=lambda c: (c["L"], c["B"]))
+        # the gate's headline case (the 20k's chunk format at its full
+        # chunk), else the largest case whose plain call ran on the same
+        # batch
+        top = next((c for c in mine if c.get("headline")), None) or max(
+            (c for c in mine
+             if c["plain_ms"] is not None and c["plain_B"] >= c["B"]),
+            key=lambda c: (c["L"], c["B"]))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"imsame_tpu_torch/csrc/{name}.cu",
@@ -2063,8 +2363,9 @@ def main(argv) -> int:
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            # no PyTorch call computes S, F or the traceback
+            # no PyTorch call computes S, F, the traceback or the gate
             "library_ms": None,
+            "library_none_because": "no PyTorch call computes it",
             "L": top["L"], "B": top["B"], "plain_B": top["plain_B"],
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Device-side candidate enumeration for the extension gate, in plain torch.
+"""Device-side candidate enumeration for the extension gate.
 
 The host candidate path (pipeline.build_flat + ops/candidates.py) expands
 every read's candidate stream on the host and uploads it, one to three
@@ -22,8 +22,9 @@ n_threads split semantics), one word per read.
 
 Candidate rank windows [frm[r], to[r]) select per-read slices of the
 stream in stream order; a chunk call materializes C consecutive selected
-candidates (one inverse-prefix search) and feeds them to the shared gate
-body (ops/candidates.gate_core): the same verdict bits as the host path.
+candidates (one inverse-prefix search) and gates them as three-word
+candidates (ops/candidates.py flat_gate: the csrc/gate.cu kernel on the
+card): the same verdict bits as the host path.
 
 Packed words are int32 on the device: the key build widens them to int64
 values in [0, 2^32) (extend_packed.as_u32), where every right shift is
@@ -37,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import FIXED_K
-from .candidates import gate_core, pack_bits
+from .candidates import flat_gate
 from .extend_packed import as_u32
 
 _U32 = 0xFFFFFFFF
@@ -172,7 +173,5 @@ def enum_gate_chunk(
     total are garbage)."""
     r, hit, qoff = enum_candidates(lo_g, scum, start_off, hasb, o_base,
                                    chunk=chunk, row_len=row_len)
-    passes, exact = gate_core(
-        qp, dp, qlen, dlen, idx_tab, r, hit, qoff, thr_tab[r], window=window
-    )
-    return pack_bits(passes, exact)
+    return flat_gate(qp, dp, qlen, dlen, idx_tab, torch.stack([hit, r, qoff]),
+                     thr_tab, window=window)

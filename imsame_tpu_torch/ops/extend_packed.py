@@ -149,6 +149,38 @@ def _window_words(packed, row, ws, EW):
     return ((W1[:, :-1] >> sh) | (W1[:, 1:] << (32 - sh))) & _U32
 
 
+def match_windows(qp, dp, r, s, qoff, doff, W: int):
+    """[N, W] match bits of each candidate's forward walk (bases qoff+o,
+    doff+o) and backward walk (qoff-13-o, doff-13-o), from one aligned
+    match-bit window covering both: base index b of the window = query
+    base ws_q + b = db base ws_d + b."""
+    N = r.shape[0]
+    i32 = torch.int32
+    EW = (2 * W + 32) // BASES_PER_WORD  # window words
+    qw = _window_words(qp, r, qoff - (W + BASES_PER_WORD), EW)
+    dw = _window_words(dp, s, doff - (W + BASES_PER_WORD), EW)
+    m = ~(qw ^ dw)
+    m2 = (m & (m >> 1) & 0x55555555).to(i32)  # < 2^31: int32 is exact
+    bitpos = 2 * torch.arange(BASES_PER_WORD, dtype=i32, device=qp.device)
+    matchall = ((m2[:, :, None] >> bitpos) & 1).to(torch.bool)
+    matchall = matchall.reshape(N, EW * BASES_PER_WORD)
+    return matchall[:, W + 16 : 2 * W + 16], matchall[:, 4 : W + 4].flip(1)
+
+
+def walk(match, lim, seed, o, W: int):
+    """One ungapped walk over [N, W] match bits (``o`` the [1, W] step
+    indexes): +POINT a match, -POINT a mismatch from ``seed``, within
+    ``o <= lim``.  Returns (S, stop, first_np): the running scores, the
+    bases processed (up to and including the first step whose score is
+    <= 0, or to the bound or W) and that first step (W if none)."""
+    in_b = o <= lim[:, None]
+    pm = torch.where(in_b, torch.where(match, POINT, -POINT), 0)
+    S = seed + torch.cumsum(pm.to(torch.int32), dim=1, dtype=torch.int32)
+    first_np = _first_true((S <= 0) & in_b, o, W)
+    stop = torch.minimum((lim + 1).clamp(0, W), first_np + 1)
+    return S, stop, first_np
+
+
 def extend_packed(
     qp: torch.Tensor,  # [n_q, WP] int32 packed query rows
     dp: torch.Tensor,  # [n_db, WP] int32 packed db rows
@@ -163,39 +195,17 @@ def extend_packed(
     W: int,
 ) -> ExtendPackedResult:
     assert W % BASES_PER_WORD == 0
-    N = r.shape[0]
-    dev = qp.device
-    EW = (2 * W + 32) // BASES_PER_WORD  # window words
-    o = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    o = torch.arange(W, dtype=torch.int32, device=qp.device)[None, :]
     NEGI = -(2**30)
     i32 = torch.int32
-
-    # One aligned match-bit window per candidate covering both walks:
-    # base index b of the window = query base ws_q + b = db base ws_d + b.
-    qw = _window_words(qp, r, qoff - (W + BASES_PER_WORD), EW)
-    dw = _window_words(dp, s, doff - (W + BASES_PER_WORD), EW)
-    m = ~(qw ^ dw)
-    m2 = (m & (m >> 1) & 0x55555555).to(i32)  # < 2^31: int32 is exact
-    bitpos = 2 * torch.arange(BASES_PER_WORD, dtype=i32, device=dev)
-    matchall = ((m2[:, :, None] >> bitpos) & 1).to(torch.bool)
-    matchall = matchall.reshape(N, EW * BASES_PER_WORD)
-
-    fwd = matchall[:, W + 16 : 2 * W + 16]  # match at (qoff+o, doff+o)
-    bwd = matchall[:, 4 : W + 4].flip(1)  # match at (qoff-13-o, doff-13-o)
+    fwd, bwd = match_windows(qp, dp, r, s, qoff, doff, W)
 
     # ---- forward pass ----
     flim = torch.minimum(dlen - 1 - doff, qlen - 1 - qoff)  # [N]
-    in_b = o <= flim[:, None]
-    match = fwd & in_b
-    pm = torch.where(in_b, torch.where(match, POINT, -POINT), 0).to(i32)
-    S = SEED_SCORE + torch.cumsum(pm, dim=1, dtype=i32)
-
-    first_oob = (flim + 1).clamp(0, W)
-    first_np = _first_true((S <= 0) & in_b, o, W)
-    stop = torch.minimum(first_oob, first_np + 1)
+    S, stop, first_np = walk(fwd, flim, SEED_SCORE, o, W)
     processed = o < stop[:, None]
 
-    idents_fwd = (match & processed).sum(dim=1, dtype=i32)
+    idents_fwd = (fwd & processed).sum(dim=1, dtype=i32)
     M = torch.where(processed, S, NEGI).amax(dim=1)
     has_high = M >= SEED_SCORE
     o_best = _last_true(processed & (S == M[:, None]), o)
@@ -204,17 +214,10 @@ def extend_packed(
 
     # ---- backward pass (running score seeded with high_right) ----
     blim = torch.minimum(doff, qoff) - (FIXED_K + 1)
-    in_b2 = o <= blim[:, None]
-    match2 = bwd & in_b2
-    pm2 = torch.where(in_b2, torch.where(match2, POINT, -POINT), 0).to(i32)
-    S2 = high_right[:, None] + torch.cumsum(pm2, dim=1, dtype=i32)
-
-    first_oob2 = (blim + 1).clamp(0, W)
-    first_np2 = _first_true((S2 <= 0) & in_b2, o, W)
-    stop2 = torch.minimum(first_oob2, first_np2 + 1)
+    S2, stop2, first_np2 = walk(bwd, blim, high_right[:, None], o, W)
     processed2 = o < stop2[:, None]
 
-    idents_bwd = (match2 & processed2).sum(dim=1, dtype=i32)
+    idents_bwd = (bwd & processed2).sum(dim=1, dtype=i32)
     M2 = torch.where(processed2, S2, NEGI).amax(dim=1)
     has_high2 = M2 >= SEED_SCORE
     o_best2 = _last_true(processed2 & (S2 == M2[:, None]), o)

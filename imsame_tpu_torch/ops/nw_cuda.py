@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for the NW functions and the traceback, and
-their wrappers.
+their wrappers; the loader of every kernel of the port.
 
   nw_stats    csrc/nw_stats.cu    function S (stats-only NW): best cell +
                                   path length/identities per pair
@@ -7,13 +7,15 @@ their wrappers.
                                   backpointer words) per pair
   traceback   csrc/traceback.cu   the walk back over F's words from each
                                   pair's best cell: path stats and chain
+  gate        csrc/gate.cu        the extension gate (its wrapper is
+                                  ops/gate_cuda.py)
 
-The three sources (and the header they share, csrc/nw_common.cuh) are
-compiled on first use by ``nvcc`` for ``sm_90a`` (one process per source,
-run together) and linked into one shared library with a plain C interface
-in the repository's ``build/`` directory, keyed by the sources' hash, and
-loaded with ctypes.  Nothing is built or imported at
-module import.
+The four sources (and the header the first three share,
+csrc/nw_common.cuh) are compiled on first use by ``nvcc`` for ``sm_90a``
+(one process per source, run together) and linked into one shared library
+with a plain C interface in the repository's ``build/`` directory, keyed
+by the sources' hash, and loaded with ctypes.  Nothing is built or
+imported at module import.
 
 Each wrapper takes the plain torch version's arguments.  A CPU tensor
 goes to the plain version (ops/nw.py, ops/traceback.py); a CUDA tensor
@@ -54,8 +56,8 @@ from .traceback import TracebackResult, traceback_batch
 _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-_SOURCES = ("nw_stats.cu", "nw_forward.cu", "traceback.cu")
-_HEADERS = ("nw_common.cuh",)  # included by every source
+_SOURCES = ("nw_stats.cu", "nw_forward.cu", "traceback.cu", "gate.cu")
+_HEADERS = ("nw_common.cuh",)  # included by the NW sources and traceback.cu
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -145,6 +147,10 @@ def _load() -> ctypes.CDLL:
     lib.nw_forward_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p]
     lib.traceback_launch.restype = i
     lib.traceback_launch.argtypes = [p, p, p, i, i, p, p, p, p, p, p, p]
+    ll = ctypes.c_longlong
+    lib.gate_launch.restype = i
+    lib.gate_launch.argtypes = [p, i, i, p, i, i, p, p, p, p, p, p, ll, p, i,
+                                ll, p, p, i, p, i, p, p]
     for name in ("nw_stats_slots", "nw_forward_resident"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [i]

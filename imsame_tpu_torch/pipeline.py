@@ -15,9 +15,10 @@ its acceptance semantics bit-exact:
     evaluated out of order and the winner recovered as the first candidate
     whose pair accepts.  We therefore:
       1. gate each read's first few candidates on the device
-         (ops/candidates.py flat gate over packed rows,
-         ops/extend_packed.py) -- most reads accept their first candidate,
-         mirroring the reference's early exit -- then gate every remaining
+         (ops/candidates.py flat gate over packed rows: the csrc/gate.cu
+         kernel on the card, ops/extend_packed.py on the CPU) -- most
+         reads accept their first candidate, mirroring the reference's
+         early exit -- then gate every remaining
          candidate of the unresolved tail in one flat pass (random reads
          have no passing candidate anywhere, so the reference walks their
          whole stream too);
@@ -84,6 +85,7 @@ from .ops.candidates import (
 )
 from .ops.enum_gate import build_enum_tables, enum_gate_chunk, enum_select_prefix
 from .ops.extend import raw_score_threshold
+from .ops import nw_cuda
 from .ops.extend_packed import pack_stream, rows_from_stream
 from .ops.resolve import nw_stats_rows, nw_traceback_rows
 from .parallel import sharded
@@ -99,10 +101,10 @@ from .utils.timing import PhaseTimer
 SHORT_WINDOW = 256
 SMALL_TIER_MIN_CANDIDATES = 2_000_000
 # Candidates x window of one gate chunk past SHORT_WINDOW: bounds the
-# eager gate's [chunk, window] int32 device temporaries to this many
-# elements each (87,360 candidates at the 3072 window; up to SHORT_WINDOW
-# the chunks are Config.gate_chunks as they are).  The verdict bits do not
-# depend on chunking.
+# plain gate's [chunk, window] int32 temporaries (the CPU path's; the
+# card's kernel has none) to this many elements each (87,360 candidates at
+# the 3072 window; up to SHORT_WINDOW the chunks are Config.gate_chunks as
+# they are).  The verdict bits do not depend on chunking.
 GATE_MAX_ELEMENTS = 1 << 28
 # Segment-encoded gate words hold the index row in 25 bits.
 SEG_MAX_INDEX_ROWS = 1 << 25
@@ -260,6 +262,11 @@ def _unpack_gate_bits(words: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray
     return flat[0], flat[1]
 
 
+def _runs_kernels(devices) -> bool:
+    """Whether an engine on these devices launches the CUDA kernels."""
+    return any(torch.device(d).type == "cuda" for d in devices)
+
+
 def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
     """x with zero rows appended up to a multiple of n (the index payload
     split over n dict shards; the padding rows are never hit)."""
@@ -287,6 +294,13 @@ class TorchEngine:
         self.cfg = cfg or Config()
         self.cfg.validate()
         self.device = torch.device(device)
+        # The NW kernels exist for nw_cuda.LENGTHS only; the CPU's plain
+        # versions take any multiple of 128, as the JAX engine does.
+        missing = sorted(set(self.cfg.length_buckets) - set(nw_cuda.LENGTHS))
+        if missing and _runs_kernels([self.device, *(mesh_devices or ())]):
+            raise ValueError(
+                f"length buckets {missing} have no CUDA kernel: an engine on "
+                f"a card takes buckets of nw_cuda.LENGTHS {nw_cuda.LENGTHS}")
         self._mesh = self._make_mesh(mesh_devices)
         if self._mesh is not None:
             self.device = self._mesh.lead
@@ -661,63 +675,81 @@ class TorchEngine:
         seg = (mesh is None and not wide and self._packed_idx
                and self.index.n_entries <= SEG_MAX_INDEX_ROWS)
         pending = []
-        # gate.dispatch / gate.fetch are sub-spans of resolve.extend.
+        # gate.dispatch / gate.fetch are sub-spans of resolve.extend;
+        # gate.encode, gate.upload and gate.launch are sub-spans of
+        # gate.dispatch: the chunk's host encoding, its uploads (pageable
+        # copies, which may wait for the stream's earlier work) and the
+        # gate's launch.
+        timer = self.timer
         t_disp0 = time.perf_counter()
         for pos, take, n_pad in self._gate_spans(len(hits), window):
             sl = slice(pos, pos + take)
             if wide:
-                # (hit, read id, qoff, valid): the mesh step masks the
-                # padding with the fourth row
-                cand = np.zeros((4, n_pad), np.int32)
-                cand[0, :take] = hits[sl]
-                cand[1, :take] = rids[sl]
-                cand[2, :take] = qoffs[sl]
-                cand[3, :take] = 1
-                if mesh is None:
-                    bits = flat_gate(
-                        d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                        self._put(cand[:3]), d_thr, window=window,
-                    )
-                else:
-                    bits = sharded.gate_step_wide(
-                        mesh, d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                        mesh.put_cols(cand), d_thr, window=window,
-                        shard_rows=self._shard_rows,
-                    )
+                with timer.phase("gate.encode"):
+                    # (hit, read id, qoff, valid): the mesh step masks the
+                    # padding with the fourth row
+                    cand = np.zeros((4, n_pad), np.int32)
+                    cand[0, :take] = hits[sl]
+                    cand[1, :take] = rids[sl]
+                    cand[2, :take] = qoffs[sl]
+                    cand[3, :take] = 1
+                with timer.phase("gate.upload"):
+                    d_cand = (self._put(cand[:3]) if mesh is None
+                              else mesh.put_cols(cand))
+                with timer.phase("gate.launch"):
+                    if mesh is None:
+                        bits = flat_gate(
+                            d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                            d_cand, d_thr, window=window,
+                        )
+                    else:
+                        bits = sharded.gate_step_wide(
+                            mesh, d_qp, d_dp, d_qlen, d_dlen,
+                            self._d_idx_tab, d_cand, d_thr, window=window,
+                            shard_rows=self._shard_rows,
+                        )
             elif seg:
-                # segments <= candidates, so n_pad slots never overflow
-                nat = native.seg_encode(
-                    rids[sl], qoffs[sl], hits[sl], n_pad, n_pad
-                )
-                if nat is not None:
-                    cand1, rt, rb, nseg = nat
-                    rt, rb = rt[:nseg], rb[:nseg]
-                else:
-                    cand1, rt, rb = encode_seg_chunk(
-                        rids[sl], qoffs[sl], hits[sl], n_pad
+                with timer.phase("gate.encode"):
+                    # segments <= candidates, so n_pad slots never overflow
+                    nat = native.seg_encode(
+                        rids[sl], qoffs[sl], hits[sl], n_pad, n_pad
                     )
-                bits = flat_gate_seg(
-                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                    self._put(cand1), self._put(rt), self._put(rb), d_thr,
-                    window=window,
-                )
-            else:
-                cand = np.zeros((2, n_pad), np.int32)
-                cand[0, :take] = hits[sl]
-                cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
-                if mesh is None:
-                    bits = flat_gate_packed(
+                    if nat is not None:
+                        cand1, rt, rb, nseg = nat
+                        rt, rb = rt[:nseg], rb[:nseg]
+                    else:
+                        cand1, rt, rb = encode_seg_chunk(
+                            rids[sl], qoffs[sl], hits[sl], n_pad
+                        )
+                with timer.phase("gate.upload"):
+                    d_cand = [self._put(a) for a in (cand1, rt, rb)]
+                with timer.phase("gate.launch"):
+                    bits = flat_gate_seg(
                         d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                        self._put(cand), d_thr, window=window,
+                        *d_cand, d_thr, window=window,
                     )
-                else:
-                    bits = sharded.gate_step(
-                        mesh, d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                        mesh.put_cols(cand), d_thr, window=window,
-                        shard_rows=self._shard_rows,
-                    )
+            else:
+                with timer.phase("gate.encode"):
+                    cand = np.zeros((2, n_pad), np.int32)
+                    cand[0, :take] = hits[sl]
+                    cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
+                with timer.phase("gate.upload"):
+                    d_cand = (self._put(cand) if mesh is None
+                              else mesh.put_cols(cand))
+                with timer.phase("gate.launch"):
+                    if mesh is None:
+                        bits = flat_gate_packed(
+                            d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
+                            d_cand, d_thr, window=window,
+                        )
+                    else:
+                        bits = sharded.gate_step(
+                            mesh, d_qp, d_dp, d_qlen, d_dlen,
+                            self._d_idx_tab, d_cand, d_thr, window=window,
+                            shard_rows=self._shard_rows,
+                        )
             pending.append((sl, slice(0, take), bits))
-        self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
         return pending
 
     def _gate_chunks_routed(self, rids, hits, qoffs, d_thr, dev, window):
@@ -733,7 +765,9 @@ class TorchEngine:
         mesh = self._mesh
         n_dict = mesh.shape["dict"]
         rows = self._shard_rows
+        timer = self.timer
         t_disp0 = time.perf_counter()
+        t_enc0 = t_disp0
         shard = hits // np.int32(rows)
         order = np.argsort(shard, kind="stable")
         counts = np.bincount(shard, minlength=n_dict).astype(np.int64)
@@ -771,13 +805,19 @@ class TorchEngine:
             # row 0 after the step's rebase)
             pad = np.flatnonzero(perm < 0)
             cand[0, pad] = (pad // seg % n_dict).astype(np.int32) * rows
-            bits = sharded.gate_step_routed(
-                mesh, *dev, self._d_idx_tab, mesh.put_cols(cand, flat=True),
-                d_thr, window=window, shard_rows=rows,
-            )
+            timer.accumulate("gate.encode", time.perf_counter() - t_enc0)
+            with timer.phase("gate.upload"):
+                d_cand = mesh.put_cols(cand, flat=True)
+            with timer.phase("gate.launch"):
+                bits = sharded.gate_step_routed(
+                    mesh, *dev, self._d_idx_tab, d_cand, d_thr,
+                    window=window, shard_rows=rows,
+                )
+            t_enc0 = time.perf_counter()
             valid = perm >= 0
             pending.append((perm[valid], valid, bits))
-        self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        timer.accumulate("gate.encode", time.perf_counter() - t_enc0)
+        timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
         return pending
 
     def _enum_prepare(self, q: SeqInfo, dev):
@@ -811,11 +851,14 @@ class TorchEngine:
         pending = []
         t_disp0 = time.perf_counter()
         for pos, take, n_pad in self._gate_spans(N, window):
-            bits = enum_gate_chunk(
-                d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab, d_thr,
-                lo_g, scum, start_off, d_hasb, pos,
-                chunk=n_pad, window=window, row_len=d_qp.shape[1] * 16,
-            )
+            # no host encoding or upload: the chunk's addressing and the
+            # gate are its launches
+            with self.timer.phase("gate.launch"):
+                bits = enum_gate_chunk(
+                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab, d_thr,
+                    lo_g, scum, start_off, d_hasb, pos,
+                    chunk=n_pad, window=window, row_len=d_qp.shape[1] * 16,
+                )
             pending.append((slice(pos, pos + take), slice(0, take), bits))
         self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
         return pending

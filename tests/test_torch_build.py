@@ -117,7 +117,8 @@ def test_nw_cuda_first_load_from_threads(fake_nvcc):
     assert len(libs) == N_THREADS and all(lib is libs[0] for lib in libs)
     assert len(runs) == 2  # one compile step (every source) and one link
     compiled = sorted(os.path.basename(c[-1]) for c in runs[0])
-    assert compiled == ["nw_forward.cu", "nw_stats.cu", "traceback.cu"]
+    assert compiled == ["gate.cu", "nw_forward.cu", "nw_stats.cu",
+                        "traceback.cu"]
     files = [p.name for p in build_dir.iterdir()]
     assert len(files) == 1 and files[0].startswith("libnw_"), files
 
