@@ -27,7 +27,8 @@ engines, then frees them before 7), and 10, which runs last (it reuses
                 payloads: full chunks of 2^21 at the windows 256 and 64
                 and 87,360 at 3072 (some with padding slots), and 128,
                 512, 1024 and 2048 once each; timed with L2 flushed before
-                each launch, with its bytes bound (gate_bound).  The
+                each launch, with its bytes bound (gate_bound), its bases
+                walked a second and its lane efficiency.  The
                 traceback at the render ladder's batches of every bucket
                 (2048 at 128 and 256, 1024, 256, 64 and 8, 24 and 8),
                 at 3072 / 272 (past 2^31 bp words: 64-bit offsets), on the
@@ -184,9 +185,10 @@ With --ab PARENT [DIR] (PARENT another checkout, e.g. the parent commit
 unpacked by git archive into build/parent) it runs phases 1-2, builds
 the parent's kernels with the parent's own ops/nw_cuda.py, prints both
 libraries' SASS sizes and cells loops, and times the two checkouts'
-kernels in turns on every case of phase 3 (phase_ab), writing the rows
-and SASS listings to DIR if given; it runs no plain version and no
-path.
+kernels in turns on every case of phase 3 (phase_ab; the gate's through
+each side's ops/gate_cuda.py launch_gate, with L2 flushed, printing the
+bases walked a second and the lane efficiency), writing the rows and
+SASS listings to DIR if given; it runs no plain version and no path.
 """
 
 import gc
@@ -990,16 +992,27 @@ def span_words(row, b0, n, wp: int):
     return torch.repeat_interleave(lo - first, cnt) + step
 
 
+def lane_efficiency(nf, nb) -> float:
+    """The share of the gate kernel's lanes busy on its 8-base steps: the
+    candidates' steps (ceil(nf / 8) + ceil(nb / 8)) over 32 lanes times
+    each warp's longest forward walk plus its longest backward walk, in
+    steps, with warps of 32 consecutive candidates in launch order
+    (padding slots are lanes too).  A diagnostic of divergence beside the
+    byte bound, not a bound."""
+    steps = torch.stack([(nf + 7) // 8, (nb + 7) // 8]).view(2, -1, 32)
+    return float(steps.sum()) / max(32 * int(steps.amax(dim=2).sum()), 1)
+
+
 def gate_bound(tabs, idx_tab, cand, rtab, rbase, W: int):
-    """(ms, "bytes", bases walked) for a gate call: the bytes that the
-    call must move, each once, over HBM_BPS.  The candidate words (and
+    """(ms, "bytes", bases walked, lane efficiency) for a gate call: the
+    bytes that the call must move, each once, over HBM_BPS.  The candidate words (and
     the seg format's 8 bytes a segment) and the output words, and the
     distinct 32-byte sectors of every table that the call reads: the
     index entries of the candidates' hits (the packed word, or the wide
     pos and sid and the db_start of their db reads), thr and qlen of
     their query reads, dlen of their db reads, and the row words that
     their two walks cover on either side (walk_lengths on these
-    inputs)."""
+    inputs); the bases walked and lane_efficiency of those walks."""
     qp, dp, qlen, dlen, thr = tabs
     r, hit, qoff = candidates.decode_candidates(cand, rtab, rbase)
     wide = not isinstance(idx_tab, torch.Tensor)
@@ -1016,7 +1029,8 @@ def gate_bound(tabs, idx_tab, cand, rtab, rbase, W: int):
         + (2 if wide else 1) * sectors(s)
     nbytes = (4 * cand.numel() + (8 * rtab.numel() if rtab is not None else 0)
               + 32 * (table + rows) + cand.shape[-1] // 4)
-    return nbytes / HBM_BPS * 1e3, "bytes", int((nf + nb).sum())
+    return (nbytes / HBM_BPS * 1e3, "bytes", int((nf + nb).sum()),
+            lane_efficiency(nf, nb))
 
 
 def differing_bits(got, want) -> int:
@@ -1047,15 +1061,16 @@ def check_gate(cases, note, W, tabs, idx_tab, chunk, headline, reps=5):
                            .sum()) for w in want)
     del got, want
     ms = cuda_ms_cold(lambda: gate_cuda.gate(*args, window=W), reps)
-    b_ms, b_by, walked = gate_bound(tabs, idx_tab, cand, rtab, rbase, W)
+    b_ms, b_by, walked, eff = gate_bound(tabs, idx_tab, cand, rtab, rbase, W)
     cases.append(dict(kernel="gate", L=W, B=N, max_abs_err=err, ms=ms,
                       plain_ms=plain_ms, plain_B=N, bound_ms=b_ms,
                       bound_by=b_by, note=note, headline=headline,
-                      walked=walked))
+                      walked=walked, lane_efficiency=eff))
     print(f"gate       W={W} N={N}{note}: equal (0 bits differ), kernel "
           f"{ms:.3f} ms (L2 flushed), plain {plain_ms:.3f} ms, "
           f"{N / ms / 1e6:.2f} G candidates/s, {walked / N:.1f} bases walked"
-          f" a candidate, {n_pass} pass, {n_exact} exact, bound "
+          f" a candidate, {walked / ms / 1e6:.1f} G bases/s, lane efficiency "
+          f"{eff:.3f}, {n_pass} pass, {n_exact} exact, bound "
           f"{b_ms:.3f} ms ({b_by}) = {100 * b_ms / ms:.1f} %")
 
 
@@ -1142,7 +1157,8 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
     commit unpacked with git archive) and of this one on the same inputs,
     in turns (parent, this, this, parent), on every kernel case; this
     checkout's outputs must equal the parent's bit for bit.  Each side
-    launches through its own ops/nw_cuda.py.  Prints one line per case;
+    launches through its own ops/nw_cuda.py (the gate through its own
+    ops/gate_cuda.py, ab_gate).  Prints one line per case;
     runs no plain version.  With `out_dir` it also writes the rows
     (out_dir/ab_kernels.json) and both SASS listings there."""
     pmod = checkout_nw_cuda(parent)
@@ -1200,12 +1216,59 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
     if skipped:
         print(f"ab traceback: {skipped} cases skipped: {parent} has no "
               "traceback kernel (ops/nw_cuda.py launch_traceback)")
+    rows += ab_gate(parent, pmod)
     for Lb in (128, L) + LONG:
         print(f"resident pairs L={Lb}: " + ", ".join(
             f"{k} parent {resident(pmod, k, Lb)}, new "
             f"{nw_cuda.resident_pairs(k, Lb)}" for k in KERNELS))
     if out_dir:
         Path(out_dir, "ab_kernels.json").write_text(json.dumps(rows, indent=1))
+
+
+def ab_gate(parent: str, pmod) -> list:
+    """phase_ab's gate cases: every gate_cases chunk through the parent's
+    and this checkout's ops/gate_cuda.py launch_gate, timed in turns
+    (parent, this, this, parent) with L2 flushed before each launch, this
+    checkout's words bit-equal to the parent's; returns the rows.  A
+    parent without a gate kernel skips them and says so."""
+    try:
+        pgate = importlib.import_module(
+            pmod.__name__.rsplit(".", 1)[0] + ".gate_cuda")
+    except ModuleNotFoundError:
+        pgate = None
+    rows, skipped = [], 0
+    for note, W, tabs, idx_tab, (cand, rtab, rbase), _ in gate_cases():
+        if pgate is None:
+            skipped += 1
+            continue
+        args = (*tabs[:4], idx_tab, cand, tabs[4], rtab, rbase)
+        runs = {"parent": lambda: pgate.launch_gate(*args, window=W),
+                "new": lambda: gate_cuda.launch_gate(*args, window=W)}
+        err = differing_bits(runs["new"](), runs["parent"]())
+        if err:
+            raise AssertionError(f"ab gate W={W}{note}: {err} bits differ "
+                                 "from the parent's")
+        t = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            t[who].append(cuda_ms_cold(runs[who], 5))
+        pm, nm = (sum(t[w]) / 2 for w in ("parent", "new"))
+        b_ms, b_by, walked, eff = gate_bound(tabs, idx_tab, cand, rtab,
+                                             rbase, W)
+        N = cand.shape[-1]
+        rows.append(dict(kernel="gate", L=W, B=N, note=note,
+                         parent_ms=t["parent"], new_ms=t["new"],
+                         max_abs_err=err, walked=walked,
+                         lane_efficiency=eff, bound_ms=b_ms, bound_by=b_by))
+        print(f"ab gate       W={W} N={N}{note}: equal to parent (0 bits "
+              f"differ); parent {pm:.3f} ms, new {nm:.3f} ms, new/parent "
+              f"{nm / pm:.3f}; {walked / N:.1f} bases walked a candidate, "
+              f"{walked / pm / 1e6:.1f} -> {walked / nm / 1e6:.1f} G bases/s,"
+              f" lane efficiency {eff:.3f}; bound {b_ms:.3f} ms ({b_by})")
+        del args, runs
+    if skipped:
+        print(f"ab gate: {skipped} cases skipped: {parent} has no gate "
+              "kernel (ops/gate_cuda.py)")
+    return rows
 
 
 def warm(label: str, fn):

@@ -33,22 +33,44 @@
 // table (the plain version raises there) is clamped, so no load leaves a
 // table.
 //
-// What bounds it on the H100: the gathers.  A candidate reads its own
-// index entry, threshold, lengths and the row words its walks cover: a few
-// 32-byte sectors of scattered loads, dependent on each other (candidate ->
-// index entry -> db read -> row word), for a handful of integer operations
-// a base.  Random candidates die within a few tens of bases, so a walk
-// reads one to three words a side.
+// What bounds it on the H100: not bytes (its byte bound is a few percent
+// of its time), but the work of each candidate's thread, in two parts.
+// The walk: base by base it costs some 8-10 instructions a base, and a
+// warp waits on the longest walk of its 32 lanes -- read-major stream
+// order puts one query read's long true-diagonal walks beside random hits
+// that die within a few tens of bases.  The set-up: dependent scattered
+// gathers (candidate -> index entry -> db read -> row words), each warp
+// load touching up to 32 lines.
 //
 // What the design does about it: one thread walks one candidate, straight
-// from the packed rows, 16 bases a load pair (a funnel shift aligns them)
-// and one bit a base, and stops as soon as its score dies: the work follows
-// the walk and not W, and no [chunk, window] temporary exists.  Lane k of
+// from the packed rows, 16 bases a load pair (a funnel shift aligns them),
+// and stops as soon as its score dies: the work follows the walk and not
+// W, and no [chunk, window] temporary exists.  The 16 match bits of a load
+// pair are compacted to one bit a base, and the walk takes them eight at a
+// time: a 256-entry step table, indexed by the 8-bit match mask, gives the
+// group's net step, its highest prefix and the last base reaching it, and
+// its lowest prefix.  A group that lies within the walk's limit and whose
+// lowest prefix cannot take the score to 0 is one step (identities by
+// popcount, the watermark from the highest prefix); only the group where
+// the score can die, or where the limit falls, runs the per-base loop.  A
+// score of 36 or more cannot die within 8 bases, so a walk runs on the
+// table from its seed until it nears death, and the serial chain of a
+// lane's steps is an eighth of the per-base one.  On chunks of short walks
+// the set-up's gathers are left in front (PERF.md, section 6).  Lane k of
 // warp w is candidate 32w + k, so the two output words are two ballots.  W
 // is a runtime argument (any positive multiple of 16).  The seg format's
 // two prefix sums are a block scan with a carry from a scan of the blocks'
 // totals: three launches a chunk (totals, their scan, the gate); the other
 // formats one.  Offsets into rows and chunks are 64-bit.
+//
+// The step table lives in shared memory (1 KB, built by the block's 256
+// threads, one entry each, before anything else): lanes index it
+// divergently, which constant memory would serialise.  Entry g (bit t of
+// g = base t of the group matched; step +1 on a match, -1 otherwise,
+// prefix P_t after base t) packs four bytes, the first three signed and
+// scaled by the walk's 4 points a base: byte 0 = 4 * P_7, byte 1 = 4 *
+// max_t P_t, byte 2 = 4 * min_t P_t, byte 3 = the last t with P_t equal
+// to the maximum (the walk's watermark keeps the last o that reaches it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +84,8 @@ constexpr int kK = 12;  // FIXED_K
 constexpr int kPoint = 4;
 constexpr int kSeed = kK * kPoint;  // SEED_SCORE
 constexpr int kNegI = -(1 << 30);   // the watermark when nothing was walked
+constexpr int kGroup = 8;           // bases a table step
+static_assert(kBlock == 1 << kGroup, "a block builds the step table");
 
 enum Format { kSeg = 1, kTwoWords = 2, kThreeWords = 3 };
 
@@ -100,10 +124,30 @@ __device__ __forceinline__ unsigned bases16(const unsigned* row, int wp,
   return __funnelshift_r(lo, hi, 2 * (p & 15));
 }
 
-// Bit 2t set where base t of two 16-base groups is equal.
+// Bit t set where base t of two 16-base groups is equal.
 __device__ __forceinline__ unsigned match_bits(unsigned q, unsigned d) {
-  const unsigned m = ~(q ^ d);
-  return m & (m >> 1) & 0x55555555u;
+  unsigned m = ~(q ^ d);
+  m &= (m >> 1) & 0x55555555u;  // bit 2t
+  m = (m | (m >> 1)) & 0x33333333u;
+  m = (m | (m >> 2)) & 0x0F0F0F0Fu;
+  m = (m | (m >> 4)) & 0x00FF00FFu;
+  return (m | (m >> 8)) & 0xFFFFu;
+}
+
+// Entry g of the step table (see the note at the top), built by thread g.
+__device__ __forceinline__ unsigned step_entry(unsigned g) {
+  int P = 0, hi = -kGroup, lo = kGroup, last = 0;
+  for (int t = 0; t < kGroup; ++t) {
+    P += (g >> t) & 1 ? 1 : -1;
+    if (P >= hi) {
+      hi = P;
+      last = t;
+    }
+    lo = min(lo, P);
+  }
+  return ((unsigned)(kPoint * P) & 0xFFu) |
+         ((unsigned)(kPoint * hi) & 0xFFu) << 8 |
+         ((unsigned)(kPoint * lo) & 0xFFu) << 16 | (unsigned)last << 24;
 }
 
 struct Walk {
@@ -113,36 +157,57 @@ struct Walk {
   bool died;   // the score reached <= 0 at o <= lim
 };
 
-// One walk over o = 0 .. lim (lim = min(bound, W - 1)) from score S: the
-// forward walk compares (q + o, d + o), the backward one (q - o, d - o).
-// It stops after the first o with S <= 0.
+// One walk over o = 0 .. lim (lim = min(bound, W - 1)) from score S, a
+// positive multiple of 4: the forward walk compares (q + o, d + o), the
+// backward one (q - o, d - o).  It stops after the first o with S <= 0.
+// `steps` is the block's step table.
 template <bool kBackward>
-__device__ __forceinline__ Walk walk(const unsigned* qrow, int wpq,
+__device__ __forceinline__ Walk walk(const unsigned* steps,
+                                     const unsigned* qrow, int wpq,
                                      const unsigned* drow, int wpd, int q,
                                      int d, int lim, int S) {
   Walk w{kNegI, -1, 0, false};
   for (int o0 = 0; o0 <= lim; o0 += 16) {
     unsigned m;
     if constexpr (kBackward) {
-      // bases q - o0 - 15 .. q - o0; reversed, o = o0 + k at bit 2k
+      // bases q - o0 - 15 .. q - o0; reversed, o = o0 + k at bit k
       m = match_bits(bases16(qrow, wpq, q - o0 - 15),
                      bases16(drow, wpd, d - o0 - 15));
-      m = __brev(m) >> 1;
+      m = __brev(m) >> 16;
     } else {
       m = match_bits(bases16(qrow, wpq, q + o0), bases16(drow, wpd, d + o0));
     }
-    const int n = min(16, lim - o0 + 1);
-    for (int t = 0; t < n; ++t) {
-      const int hit = (m >> (2 * t)) & 1;
-      S += hit ? kPoint : -kPoint;
-      w.idents += hit;
-      if (S >= w.M) {  // >=: the last o that reaches the watermark
-        w.M = S;
-        w.best = o0 + t;
+#pragma unroll
+    for (int h = 0; h < 16; h += kGroup) {
+      const int g0 = o0 + h;
+      if (g0 > lim) return w;
+      const unsigned g = (m >> h) & 0xFFu;
+      const unsigned e = steps[g];
+      const int lo = (int)(signed char)(e >> 16);
+      if (g0 + kGroup - 1 <= lim && S + lo > 0) {  // no death in the group
+        const int top = S + (int)(signed char)(e >> 8);
+        w.idents += __popc(g);
+        if (top >= w.M) {  // >=: the last o that reaches the watermark
+          w.M = top;
+          w.best = g0 + (int)(e >> 24);
+        }
+        S += (int)(signed char)e;
+        continue;
       }
-      if (S <= 0) {
-        w.died = true;
-        return w;
+      // the group where the score can die or the limit falls: base by base
+      const int n = min(kGroup, lim - g0 + 1);
+      for (int t = 0; t < n; ++t) {
+        const int hit = (g >> t) & 1;
+        S += hit ? kPoint : -kPoint;
+        w.idents += hit;
+        if (S >= w.M) {
+          w.M = S;
+          w.best = g0 + t;
+        }
+        if (S <= 0) {
+          w.died = true;
+          return w;
+        }
       }
     }
   }
@@ -218,6 +283,9 @@ __global__ void __launch_bounds__(kBlock)
                 const int* __restrict__ rtab, const int* __restrict__ rbase,
                 int n_seg, const uint2* __restrict__ carry, int W,
                 int* __restrict__ out) {
+  __shared__ unsigned steps[1 << kGroup];  // one entry a thread
+  steps[threadIdx.x] = step_entry(threadIdx.x);
+  __syncthreads();  // before any thread of the block returns
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   int r, hit, qoff;
   if constexpr (kFormat == kSeg) {
@@ -258,13 +326,13 @@ __global__ void __launch_bounds__(kBlock)
   const unsigned* drow = t.dp + (long long)s * t.wp_d;
 
   const int flim = min(wsub(wsub(dl, 1), doff), wsub(wsub(ql, 1), qoff));
-  const Walk f = walk<false>(qrow, t.wp_q, drow, t.wp_d, qoff, doff,
+  const Walk f = walk<false>(steps, qrow, t.wp_q, drow, t.wp_d, qoff, doff,
                              min(flim, W - 1), kSeed);
   const int end_row = f.M >= kSeed ? wadd(doff, f.best) : wsub(doff, 1);
   const int blim = wsub(min(doff, qoff), kK + 1);
-  const Walk b = walk<true>(qrow, t.wp_q, drow, t.wp_d, wsub(qoff, kK + 1),
-                            wsub(doff, kK + 1), min(blim, W - 1),
-                            max(f.M, kSeed));
+  const Walk b = walk<true>(steps, qrow, t.wp_q, drow, t.wp_d,
+                            wsub(qoff, kK + 1), wsub(doff, kK + 1),
+                            min(blim, W - 1), max(f.M, kSeed));
   const int start_row =
       b.M >= kSeed ? wsub(wsub(doff, kK + 1), b.best) : wsub(doff, kK);
   const unsigned idents = (unsigned)(kK + f.idents + b.idents);

@@ -3,10 +3,14 @@
 
 The kernel runs only on the card, where chip_smoke.py holds it to the
 plain version bit for bit.  Here its algorithm is written out in numpy,
-one candidate at a time (``scalar_extend``: 16 bases a word, early exit,
+one candidate at a time (``scalar_extend``: 16 bases a load pair, one
+match bit a base, 8 bases a step of the step table, the per-base loop in
+the group where the score can die or the walk's limit falls, early exit,
 the watermark kept with >=), and held bit for bit against the JAX
 package's extend_packed at the windows 64, 128, 256 and 3072, on real
-k-mer hits, random candidates and the edge cases of the walks; the whole
+k-mer hits, random candidates and the edge cases of the walks; the step
+table against a brute-force prefix walk, and the group walk against the
+per-base walk on random walks and at the groups' edges; the whole
 launch is modelled (``model_gate``: the seg words' two prefix sums as
 256-candidate block scans plus a carry, the index lookup, the walks and
 the two ballots) and held against JAX's flat_gate_seg, flat_gate_packed
@@ -36,6 +40,7 @@ from util_synth import make_pair
 K, POINT = 12, 4
 SEED = K * POINT
 NEGI = -(1 << 30)
+GROUP = 8  # bases a step of the kernel's step table
 BLOCK = 256  # csrc/gate.cu kBlock: candidates a block of the seg scan
 
 
@@ -59,32 +64,106 @@ def _bases16(row, p: int) -> int:
 
 
 def _match_bits(q: int, d: int) -> int:
+    """Bit t set where base t of two 16-base groups is equal: the equal
+    2-bit codes' bits 2t, compacted as the kernel compacts them."""
     m = ~(q ^ d) & 0xFFFFFFFF
-    return m & (m >> 1) & 0x55555555
+    m &= (m >> 1) & 0x55555555
+    m = (m | (m >> 1)) & 0x33333333
+    m = (m | (m >> 2)) & 0x0F0F0F0F
+    m = (m | (m >> 4)) & 0x00FF00FF
+    return (m | (m >> 8)) & 0xFFFF
 
 
 def _brev(x: int) -> int:
     return int(f"{x:032b}"[::-1], 2)
 
 
-def _walk(qrow, drow, q, d, lim, S, backward):
-    """(M, best, idents, died) of one walk over o = 0 .. lim."""
-    M, best, idents = NEGI, -1, 0
+def _step_table() -> np.ndarray:
+    """The kernel's 256-entry step table (step_entry) as uint32 words.  In
+    entry g, base t of a group of 8 steps +1 where bit t of g is set, -1
+    otherwise; P_t is the prefix after base t.  Bytes 0-2 are 4 * P_7,
+    4 * max P_t and 4 * min P_t as int8; byte 3 is the last t with P_t at
+    the maximum."""
+    g = np.arange(256)[:, None]
+    P = np.cumsum(np.where((g >> np.arange(GROUP)) & 1, 1, -1), axis=1)
+    hi, lo = P.max(axis=1), P.min(axis=1)
+    last = GROUP - 1 - np.argmax(P[:, ::-1] == hi[:, None], axis=1)
+    byte = lambda x: (POINT * x) & 0xFF  # noqa: E731
+    return (byte(P[:, -1]) | byte(hi) << 8 | byte(lo) << 16
+            | last << 24).astype(np.uint32)
+
+
+STEPS = _step_table()
+
+
+def _entry(g: int):
+    """(4 * P_7, 4 * max P_t, 4 * min P_t, last t at the maximum) of step
+    table entry g, unpacked as the kernel unpacks it."""
+    e = int(STEPS[g])
+    i8 = lambda b: b - 256 if b & 0x80 else b  # noqa: E731
+    return i8(e & 0xFF), i8(e >> 8 & 0xFF), i8(e >> 16 & 0xFF), e >> 24
+
+
+def _masks(qrow, drow, q, d, lim, backward):
+    """The 16-bit match masks of a walk over o = 0 .. lim, one a load pair:
+    o = o0 + k at bit k of mask o0 / 16.  The forward walk compares (q + o,
+    d + o), the backward one (q - o, d - o), reversed by __brev."""
+    out = []
     for o0 in range(0, lim + 1, 16):
         if backward:
             m = _brev(_match_bits(_bases16(qrow, q - o0 - 15),
-                                  _bases16(drow, d - o0 - 15))) >> 1
+                                  _bases16(drow, d - o0 - 15))) >> 16
         else:
             m = _match_bits(_bases16(qrow, q + o0), _bases16(drow, d + o0))
-        for t in range(min(16, lim - o0 + 1)):
-            hit = (m >> (2 * t)) & 1
+        out.append(m)
+    return out
+
+
+def _walk_per_base(masks, lim, S):
+    """(M, best, idents, died) of a walk over o = 0 .. lim from score S,
+    one base at a time: the plain walk's semantics."""
+    M, best, idents = NEGI, -1, 0
+    for o in range(lim + 1):
+        hit = (masks[o >> 4] >> (o & 15)) & 1
+        S += POINT if hit else -POINT
+        idents += hit
+        if S >= M:  # >=: the last o that reaches the watermark
+            M, best = S, o
+        if S <= 0:
+            return M, best, idents, True
+    return M, best, idents, False
+
+
+def _walk_groups(masks, lim, S):
+    """The same walk as the kernel takes it, 8 bases a step: a group
+    within lim whose lowest prefix leaves the score above 0 is one step
+    of the table; the group where the score can die, or where lim falls,
+    goes base by base."""
+    M, best, idents = NEGI, -1, 0
+    for g0 in range(0, lim + 1, GROUP):
+        g = (masks[g0 >> 4] >> (g0 & 15)) & 0xFF
+        p7, hi, lo, last = _entry(g)
+        if g0 + GROUP - 1 <= lim and S + lo > 0:
+            idents += bin(g).count("1")
+            if S + hi >= M:
+                M, best = S + hi, g0 + last
+            S += p7
+            continue
+        for t in range(min(GROUP, lim - g0 + 1)):
+            hit = (g >> t) & 1
             S += POINT if hit else -POINT
             idents += hit
             if S >= M:
-                M, best = S, o0 + t
+                M, best = S, g0 + t
             if S <= 0:
                 return M, best, idents, True
     return M, best, idents, False
+
+
+def _walk(qrow, drow, q, d, lim, S, backward):
+    """(M, best, idents, died) of one walk over o = 0 .. lim, as the
+    kernel walks it."""
+    return _walk_groups(_masks(qrow, drow, q, d, lim, backward), lim, S)
 
 
 def scalar_extend(qrow, drow, qoff, doff, qlen, dlen, thr, W):
@@ -295,6 +374,152 @@ def test_edge_cases_reach_their_edges():
     assert (M, best) == (SEED + POINT, 38)
 
 
+def test_step_table_matches_prefix_walk():
+    """Every entry of the step table against a brute-force prefix walk of
+    its 8 bases."""
+    for g in range(256):
+        P, hi, lo, last = 0, None, None, None
+        for t in range(GROUP):
+            P += 1 if g >> t & 1 else -1
+            if hi is None or P >= hi:
+                hi, last = P, t
+            lo = P if lo is None else min(lo, P)
+        assert _entry(g) == (POINT * P, POINT * hi, POINT * lo, last), g
+
+
+def test_group_walk_matches_per_base_walk():
+    """The group walk gives the per-base walk's (M, best, idents, died) on
+    random walks: 1-300 bases at match rates 0.3-0.95, limits -1 .. n-1,
+    start scores 4-160 (multiples of 4, as every walk's)."""
+    rng = np.random.default_rng(8)
+    for _ in range(20000):
+        n = int(rng.integers(1, 301))
+        bits = rng.random(n) < rng.uniform(0.3, 0.95)
+        masks = [int(np.dot(b, 1 << np.arange(len(b))))
+                 for b in np.split(bits, range(16, n, 16))]
+        lim = int(rng.integers(-1, n))
+        S = POINT * int(rng.integers(1, 41))
+        assert _walk_groups(masks, lim, S) == _walk_per_base(masks, lim, S), \
+            (bits.astype(int).tolist(), lim, S)
+
+
+def _runs(*parts):
+    """A match pattern from (value, count) runs."""
+    return np.concatenate([np.full(n, bool(v)) for v, n in parts])
+
+
+# Candidates whose walks reach a group's edges: (qoff, doff, qlen, dlen,
+# forward pattern, backward pattern, claims).  Pattern o is the match of
+# the walk's base o (forward: qoff + o, doff + o; backward: qoff - 13 - o,
+# doff - 13 - o); past a pattern every base mismatches.  A claim is
+# (walk, "dies", o): the walk dies at o; (walk, "best", o): its watermark's
+# last o; (walk, "alive", lim): it outlives its limit.  The forward walk's
+# score at a group start is 48 + 4 * (an even count), so it cannot die on
+# a group's first base; the backward walk, seeded with the forward
+# watermark, can.
+GROUP_EDGES = {
+    # backward seed 52 (s = 13); 2 matches, 14 mismatches: s = 1 at o = 16
+    "death_first_base": (40, 40, 200, 200, _runs((1, 1)),
+                         _runs((1, 2), (0, 14)), [("b", "dies", 16)]),
+    # s = 2 at o = 16, then a prefix reaching -2 on the group's last base
+    "death_last_base": (30, 30, 200, 200,
+                        np.concatenate([_runs((1, 3), (0, 13)),
+                                        np.array([1, 0, 1, 0, 1, 0, 0, 0],
+                                                 bool)]),
+                        _runs((1, 30)), [("f", "dies", 23)]),
+    # both limits inside a group: flim = blim = 21, every base a match
+    "lim_in_group": (34, 34, 56, 56, _runs((1, 60)), _runs((1, 60)),
+                     [("f", "alive", 21), ("b", "alive", 21)]),
+    # death in the group where the forward limit (37) falls, before it
+    "lim_and_death_in_group": (30, 30, 68, 68,
+                               _runs((1, 11), (0, 21)),
+                               _runs((1, 5)), [("f", "dies", 33)]),
+    # match / mismatch in turn: the watermark's ties inside one group
+    "ties_in_group": (30, 30, 200, 200, np.tile([True, False], 4),
+                      np.tile([True, False], 6), [("f", "best", 6),
+                                                  ("b", "best", 10)]),
+    # the watermark reached in group 0 and reached again in group 1
+    "ties_across_groups": (30, 30, 200, 200,
+                           _runs((1, 3), (0, 5), (1, 5)),
+                           _runs((1, 2), (0, 6), (1, 6)),
+                           [("f", "best", 12), ("b", "best", 13)]),
+    # s = 8 at o = 16; the group's lowest prefix is -7: no death, one step
+    "s8_no_death": (30, 30, 200, 200,
+                    _runs((1, 6), (0, 10), (0, 7), (1, 1)), _runs((1, 20)),
+                    [("f", "dies", 25)]),
+    # s = 8 at o = 16 and 8 mismatches: death on the group's last base
+    "s8_death": (30, 30, 200, 200, _runs((1, 6), (0, 10), (0, 8)),
+                 _runs((1, 20)), [("f", "dies", 23)]),
+    # backward walks over word boundaries (bases 31/32, 15/16) to the
+    # read's first base, on two diagonals; blim = 37 inside a group
+    "backward_across_words": (50, 50, 200, 200, _runs((1, 1)),
+                              _runs((1, 10), (0, 3), (1, 30)),
+                              [("b", "alive", 37)]),
+    "backward_other_diagonal": (50, 61, 200, 200, _runs((1, 1)),
+                                _runs((1, 7), (0, 2), (1, 40)),
+                                [("b", "alive", 37)]),
+}
+
+
+def _edge_candidate(case, row_len=256):
+    """(qp, dp, qoff, doff, qlen, dlen) of one GROUP_EDGES case: the
+    patterns laid on random reads (the seed's 12 bases match)."""
+    qoff, doff, qlen, dlen, fwd, bwd, _ = GROUP_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    q = rng.integers(0, 4, qlen, dtype=np.uint8)
+    d = rng.integers(0, 4, dlen, dtype=np.uint8)
+    for o in range(-12, 0):
+        d[doff + o] = q[qoff + o]
+    for pat, sign, q0, d0 in ((fwd, 1, qoff, doff),
+                              (bwd, -1, qoff - K - 1, doff - K - 1)):
+        o = 0
+        while 0 <= q0 + sign * o < qlen and 0 <= d0 + sign * o < dlen:
+            qi, di = q0 + sign * o, d0 + sign * o
+            hit = o < len(pat) and pat[o]
+            d[di] = q[qi] if hit else (q[qi] + 1) % 4
+            o += 1
+    qp, ql = _pack([q], row_len)
+    dp, dl = _pack([d], row_len)
+    return qp, dp, qoff, doff, int(ql[0]), int(dl[0])
+
+
+@pytest.mark.parametrize("W", [64, 256])
+@pytest.mark.parametrize("case", sorted(GROUP_EDGES))
+def test_group_edges_match_per_base_and_jax(case, W):
+    """Walks that die on a group's first or last base, limits inside a
+    group, watermark ties inside and across groups, groups started at
+    s <= 8 with and without death, backward walks across row words: the
+    group walk equals the per-base walk, the candidate equals JAX's
+    extend_packed, and each case reaches the edge it names."""
+    qp, dp, qoff, doff, qlen, dlen = _edge_candidate(case)
+    flim = min(dlen - 1 - doff, qlen - 1 - qoff, W - 1)
+    blim = min(min(doff, qoff) - K - 1, W - 1)
+    fw = (qoff, doff, flim, False)
+    fM = _walk_per_base(_masks(qp[0], dp[0], *fw), flim, SEED)[0]
+    walks = {"f": fw + (SEED,),
+             "b": (qoff - K - 1, doff - K - 1, blim, True, max(fM, SEED))}
+    for q, d, lim, back, S in walks.values():
+        masks = _masks(qp[0], dp[0], q, d, lim, back)
+        assert _walk_groups(masks, lim, S) == _walk_per_base(masks, lim, S)
+    for which, what, o in GROUP_EDGES[case][6]:
+        q, d, lim, back, S = walks[which]
+        run = lambda n: _walk(qp[0], dp[0], q, d, n, S, back)  # noqa: E731
+        if what == "dies":
+            assert run(o)[3] and not run(o - 1)[3], (which, what)
+        elif what == "best":
+            assert run(lim)[1] == o, (which, what)
+        else:
+            assert lim == o and not run(lim)[3], (which, what)
+    thr = 60
+    got = scalar_extend(qp[0], dp[0], qoff, doff, qlen, dlen, thr, W)
+    one = lambda x: jnp.asarray(np.array([x], np.int32))  # noqa: E731
+    want = jext.extend_packed(jnp.asarray(qp), jnp.asarray(dp), one(0),
+                              one(0), one(qoff), one(doff), one(qlen),
+                              one(dlen), one(thr), W=W)
+    assert got == tuple(int(np.asarray(getattr(want, f))[0]) for f in (
+        "raw", "passes", "t_len", "idents", "exact")), case
+
+
 # ---------------------------------------------------------------------
 # a chunk in every format
 
@@ -433,6 +658,58 @@ def test_dispatchers_match_plain_and_jax(fmt, index, W):
     assert gate_cuda.gate.launches == n
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
     _assert_words(got, _jax_gate(fmt, rows, idx, cand, thr, N, W), N, fmt)
+
+
+def _bases_walked(masks, lim, S):
+    """Bases a walk over o = 0 .. lim compares: through its death, or
+    to its limit."""
+    for o in range(lim + 1):
+        S += POINT if (masks[o >> 4] >> (o & 15)) & 1 else -POINT
+        if S <= 0:
+            return o + 1
+    return max(lim + 1, 0)
+
+
+def test_walk_lengths_and_lane_efficiency():
+    """chip_smoke.py's walk_lengths counts the bases each of a chunk's
+    walks compares (padding slots too), as the per-base walk does, and
+    lane_efficiency counts 8-base steps over 32 lanes times each warp's
+    longest forward plus longest backward walk."""
+    import chip_smoke
+
+    W = 64
+    rows, words, _, thr, (rids, qoffs, hits), N, size = _chunk(3, W)
+    qp, dp, qlen, dlen = rows
+    r = np.zeros(size, np.int64)
+    qoff = np.zeros(size, np.int64)
+    hit = np.zeros(size, np.int64)
+    r[:N], qoff[:N], hit[:N] = rids, qoffs, hits
+    word = words.view(np.uint32)[np.clip(hit, 0, len(words) - 1)]
+    s = np.minimum(word >> 12, len(dp) - 1).astype(np.int64)
+    doff = (word & 0xFFF).astype(np.int64)
+    want = []
+    for ri, si, qo, do in zip(r.tolist(), s.tolist(), qoff.tolist(),
+                              doff.tolist()):
+        q, d = qp[ri], dp[si]
+        flim = min(int(dlen[si]) - 1 - do, int(qlen[ri]) - 1 - qo, W - 1)
+        blim = min(min(do, qo) - K - 1, W - 1)
+        fm = _masks(q, d, qo, do, flim, False)
+        bm = _masks(q, d, qo - K - 1, do - K - 1, blim, True)
+        fM = _walk_per_base(fm, flim, SEED)[0]
+        want.append((_bases_walked(fm, flim, SEED),
+                     _bases_walked(bm, blim, max(fM, SEED))))
+    t = lambda a: torch.as_tensor(  # noqa: E731
+        a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32))
+    nf, nb = chip_smoke.walk_lengths(
+        (t(qp), t(dp), t(qlen), t(dlen), t(thr)), t(r), t(s), t(qoff),
+        t(doff), W)
+    np.testing.assert_array_equal(np.stack([nf, nb], 1), np.array(want))
+    assert nf.max() > 8 and (nb == 0).any()
+    # two warps: 32 one-step lanes; one lane of 10 steps beside 31 idle
+    nf = torch.tensor([8] * 32 + [0] * 31 + [80])
+    nb = torch.tensor([1] * 32 + [9] + [0] * 31)
+    assert chip_smoke.lane_efficiency(nf, nb) == (64 + 2 + 10) / (
+        32 * (1 + 1) + 32 * (10 + 2))
 
 
 # ---------------------------------------------------------------------
