@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                      # the smoke test
     python3 chip_smoke.py --ab PARENT [DIR]    # kernel A/B, see phase_ab
+    python3 chip_smoke.py --ab-traceback CHECKOUT...  # the traceback's
     python3 chip_smoke.py --config3            # config-3, 1M x 1M reads
     python3 chip_smoke.py --config3 --gate-enum  # and with enumeration
 
@@ -32,8 +33,12 @@ engines, then frees them before 7), and 10, which runs last (it reuses
                 traceback at the render ladder's batches of every bucket
                 (2048 at 128 and 256, 1024, 256, 64 and 8, 24 and 8),
                 at 3072 / 272 (past 2^31 bp words: 64-bit offsets), on the
-                degenerate pairs and on the tie pairs at 256-3072, printing
-                max(n_steps) and the microseconds a move
+                degenerate pairs, on the tie pairs at 256-3072 and on
+                render-like pairs (a read and its copy with 4 %
+                substitutions): 24 of 2,500-3,000 bp with 1 % indels at
+                3072, 2048 of 250 bp at 256, printing
+                max(n_steps), the microseconds a move, the band's rounds
+                (tile_rounds) and the microseconds a round
                 (check_traceback).  For the NW kernels: pairs with empty
                 and 1-base reads, and pairs longer than the bucket (a
                 batch's padding pairs repeat read 0, which may be), at L
@@ -187,8 +192,13 @@ the parent's kernels with the parent's own ops/nw_cuda.py, prints both
 libraries' SASS sizes and cells loops, and times the two checkouts'
 kernels in turns on every case of phase 3 (phase_ab; the gate's through
 each side's ops/gate_cuda.py launch_gate, with L2 flushed, printing the
-bases walked a second and the lane efficiency), writing the rows and
+bases walked a second and the lane efficiency; the traceback's with L2
+flushed, printing both sides' rounds), writing the rows and
 SASS listings to DIR if given; it runs no plain version and no path.
+With --ab-traceback CHECKOUT... it runs phases 1-2 and phase_ab's
+traceback cases alone against each checkout (ab_traceback): the A/B of
+the band's sizes, each variant a copy of this checkout with another
+ops/nw_cuda.py TRACEBACK_BAND.
 """
 
 import gc
@@ -220,7 +230,9 @@ from imsame_tpu_torch.ops import (
 )
 from imsame_tpu_torch.ops.extend import raw_score_threshold
 from imsame_tpu_torch.ops import extend_packed as ext
-from imsame_tpu_torch.ops.traceback import TracebackResult, traceback_batch
+from imsame_tpu_torch.ops.traceback import (
+    RUN_FLAG, TracebackResult, traceback_batch,
+)
 from imsame_tpu_torch.orchestrator import AllVsAllRunner, list_samples, make_jobs
 from imsame_tpu_torch.pipeline import (
     GATE_MAX_ELEMENTS, PACKED_MAX_READS, TorchEngine, build_flat,
@@ -507,14 +519,20 @@ def cuda_ms_cold(fn, reps: int) -> float:
     """Mean milliseconds of fn() over reps launches, after one warm-up,
     each timed alone after a 128 MiB write has evicted the 50 MB L2: the
     launch finds its inputs in device memory, as the render's traceback
-    finds most of the backpointers F wrote before it."""
+    finds most of the backpointers F wrote before it.  A 0.3 ms spin on
+    the card (torch.cuda._sleep) follows the write, so that the card is
+    still busy when the host has recorded the start event and launched
+    fn: the time is the card's, not the host's launch overhead (tens of
+    microseconds, more than a small launch takes)."""
     flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    spin = int(CARD.get("sm_hz", 2e9) * 3e-4)
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -657,6 +675,48 @@ def traceback_bound(tb, Lb: int):
         "bytes"
 
 
+def tile_rounds(chain, Lb: int, band=None) -> np.ndarray:
+    """The traceback kernel's dependent round trips to device memory for
+    each pair, from its chain alone (csrc/traceback.cu): the band loads
+    and the direct loads of cells no band can serve.  The walk's cells
+    are decoded from the chain (a run entry relative to the cell before
+    it, since a run's from-cell may have a negative coordinate).  A cell
+    is served by the band held, anchored at (s0, c0), when its
+    antidiagonal lies in [s0 - 2W + 1, s0], its i below L and its offset
+    i - j within G of c0; else a cell with px + py <= 2L - 2 and px < L
+    anchors a new band, and any other cell is one direct load (every
+    cell, at W = 0: no band).  `band` is (W, G), by default
+    nw_cuda.TRACEBACK_BAND[Lb]."""
+    W, G = band or nw_cuda.TRACEBACK_BAND[Lb]
+    ch = np.asarray(torch.as_tensor(chain).cpu(), np.int64)
+    B, CH = ch.shape
+    px, py = ch[:, 0] // nw.PACK, ch[:, 0] % nw.PACK
+    s0 = np.full(B, -1, np.int64)  # no band yet
+    c0 = np.zeros(B, np.int64)
+    rounds = np.zeros(B, np.int64)
+    act = (px > 0) & (py > 0)
+    t = 0
+    while act.any() and t < CH - 1:
+        d = px + py
+        k = s0 - d
+        served = (k >= 0) & (k < 2 * W) & (px < Lb) & (
+            np.abs(px - py - c0) <= G)
+        new = act & ~served
+        anchor = new & (W > 0) & (d <= 2 * Lb - 2) & (px < Lb)
+        s0 = np.where(anchor, d, s0)
+        c0 = np.where(anchor, px - py, c0)
+        rounds += new
+        e = ch[:, t + 1]
+        run = (e < 0) | (e & RUN_FLAG != 0)
+        v = np.where(e < 0, e, e & ~RUN_FLAG)
+        r = (px * nw.PACK + py - v) // (nw.PACK + 1)
+        px = np.where(act, np.where(run, px - r, v // nw.PACK), px)
+        py = np.where(act, np.where(run, py - r, v % nw.PACK), py)
+        act &= (px > 0) & (py > 0)
+        t += 1
+    return rounds
+
+
 def check_traceback(cases, args, Lb, *, reps=5, timed=None, note="",
                     plain_B=None):
     """Hold the traceback kernel against the plain traceback_batch on the
@@ -687,18 +747,22 @@ def check_traceback(cases, args, Lb, *, reps=5, timed=None, note="",
         warm_ms = cuda_ms(lambda: nw_cuda.traceback(*part, max_len=Lb), reps)
         top = b == max(timed or (n,))
         steps = int(got.n_steps.max())
+        rounds = tile_rounds(got.chain, Lb)
         b_ms, b_by = traceback_bound(got, Lb)
         del got
         cases.append(dict(kernel="traceback", L=Lb, B=b, max_abs_err=err,
                           ms=ms, warm_ms=warm_ms,
                           plain_ms=plain_ms if top else None,
                           plain_B=pb, bound_ms=b_ms, bound_by=b_by,
-                          max_n_steps=steps, note=note))
-        print(f"traceback  L={Lb} B={b}{note}: equal, kernel {ms:.3f} ms "
-              f"(L2 flushed; {warm_ms:.3f} ms repeated on warm L2)"
+                          max_n_steps=steps, max_rounds=int(rounds.max()),
+                          mean_rounds=float(rounds.mean()), note=note))
+        print(f"traceback  L={Lb} B={b}{note}: equal, kernel {ms:.4f} ms "
+              f"(L2 flushed; {warm_ms:.4f} ms repeated on warm L2)"
               + (f", plain {plain_ms:.3f} ms (B={pb})" if top else "")
-              + f", max(n_steps) {steps}, {1e3 * ms / max(steps, 1):.2f} us"
-              f" a move, bound {1e3 * b_ms:.3f} us ({b_by}) = "
+              + f", max(n_steps) {steps}, {1e3 * ms / max(steps, 1):.3f} us"
+              f" a move, rounds {rounds.max()} max / {rounds.mean():.2f} "
+              f"mean, {1e3 * ms / max(rounds.max(), 1):.3f} us a round, "
+              f"bound {1e3 * b_ms:.3f} us ({b_by}) = "
               f"{100 * b_ms / ms:.2f} %")
     del want, bp
 
@@ -751,6 +815,21 @@ def big_pairs(rng, B: int, L: int):
     swap = rng.random(B) < 0.5
     X[swap], Y[swap] = Y[swap].copy(), X[swap].copy()
     xlen[swap], ylen[swap] = ylen[swap].copy(), xlen[swap].copy()
+    return to_cuda(X, Y, xlen, ylen)
+
+
+def render_like_pairs(rng, B: int, L: int, lo: int, hi: int, indel: float):
+    """B pairs of a read of lo..hi bp and its copy with 4 % substitutions
+    and `indel` indels (mutate_np; the long 20k's copies have 1 %, the
+    20k's none), cut to L: the accepted pairs a render walks."""
+    X = rng.integers(0, 4, (B, L), dtype=np.uint8)
+    Y = np.zeros((B, L), np.uint8)
+    xlen = rng.integers(lo, hi + 1, B).astype(np.int32)
+    ylen = np.zeros(B, np.int32)
+    for b in range(B):
+        y = mutate_np(rng, X[b, :xlen[b]], 0.04, indel)[:L]
+        Y[b, :len(y)] = y
+        ylen[b] = len(y)
     return to_cuda(X, Y, xlen, ylen)
 
 
@@ -834,6 +913,15 @@ def kernel_cases(rng):
         yield "traceback", pairs, Lb, dict(timed=sizes)
     yield "traceback", long_pairs(rng, 272 + 8, 3072, True), 3072, dict(
         reps=2, timed=(272,), note=" [> 2^31 words]")
+    # the render walks accepted pairs only: high-identity copies (the
+    # cases above are half random), the long 20k's with indels at its
+    # 3072 chunk, the 20k's 250 bp reads at its 256 chunk
+    yield "traceback", render_like_pairs(rng, 24, 3072, 2500, 3000,
+                                         0.01), 3072, dict(
+        note=" [render-like]")
+    yield "traceback", render_like_pairs(rng, 2048, 256, 250, 250,
+                                         0.0), 256, dict(
+        note=" [render-like]")
 
 
 GATE_FULL = 1 << 21  # Config.gate_chunks' largest chunk
@@ -1135,7 +1223,7 @@ def checkout_nw_cuda(root: str):
     as a package of another name; its kernels build into that
     checkout's build/."""
     pkg = Path(root).resolve() / "imsame_tpu_torch"
-    name = "parent_imsame_tpu_torch"
+    name = "ab_" + re.sub(r"\W", "_", str(pkg.parent))
     spec = importlib.util.spec_from_file_location(
         name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
@@ -1158,7 +1246,10 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
     in turns (parent, this, this, parent), on every kernel case; this
     checkout's outputs must equal the parent's bit for bit.  Each side
     launches through its own ops/nw_cuda.py (the gate through its own
-    ops/gate_cuda.py, ab_gate).  Prints one line per case;
+    ops/gate_cuda.py, ab_gate); the traceback's and the gate's cases are
+    timed with L2 flushed before each launch (ab_traceback_case,
+    ab_gate), the NW kernels' on repeated launches.  Prints one line per
+    case;
     runs no plain version.  With `out_dir` it also writes the rows
     (out_dir/ab_kernels.json) and both SASS listings there."""
     pmod = checkout_nw_cuda(parent)
@@ -1174,36 +1265,25 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
     for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
         cells = real_cells(args, Lb)
         if name == "traceback":
-            if not hasattr(pmod, "launch_traceback"):
+            if hasattr(pmod, "launch_traceback"):
+                rows += ab_traceback_case({"parent": pmod}, args, Lb, opts)
+            else:
                 skipped += 1
-                continue
-            # both sides walk this tree's F outputs
-            bp, _, bi, bj = nw_cuda.launch("nw_forward", *args, IGAP, EGAP,
-                                           max_len=Lb)
-            runs = {"parent": lambda: pmod.launch_traceback(
-                        bp, bi, bj, max_len=Lb),
-                    "new": lambda: nw_cuda.launch_traceback(
-                        bp, bi, bj, max_len=Lb)}
-            tb = TracebackResult(*runs["new"]())
-            b_ms, b_by = traceback_bound(tb, Lb)
-            rate = f"max(n_steps) {int(tb.n_steps.max())}"
-        else:
-            runs = {
-                "parent": lambda: pmod.launch(name, *args, IGAP, EGAP,
-                                              max_len=Lb),
-                "new": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
-                                              max_len=Lb),
-            }
-            b_ms, b_by = bound(name, args, Lb)
-            rate = None
+            continue
+        runs = {
+            "parent": lambda: pmod.launch(name, *args, IGAP, EGAP,
+                                          max_len=Lb),
+            "new": lambda: nw_cuda.launch(name, *args, IGAP, EGAP,
+                                          max_len=Lb),
+        }
+        b_ms, b_by = bound(name, args, Lb)
         err = max_abs_err(runs["new"](), runs["parent"]())
         reps = opts.get("reps", 5)
         t = {"parent": [], "new": []}
         for who in ("parent", "new", "new", "parent"):
             t[who].append(cuda_ms(runs[who], reps))
         pm, nm = (sum(t[w]) / 2 for w in ("parent", "new"))
-        rate = rate or (f"{cells / pm / 1e6:.2f} -> {cells / nm / 1e6:.2f} "
-                        "G cells/s")
+        rate = f"{cells / pm / 1e6:.2f} -> {cells / nm / 1e6:.2f} G cells/s"
         rows.append(dict(kernel=name, L=Lb, B=args[0].shape[0],
                          note=opts.get("note", ""), parent_ms=t["parent"],
                          new_ms=t["new"], max_abs_err=err, cells=cells,
@@ -1223,6 +1303,70 @@ def phase_ab(parent: str, out_dir: str | None = None) -> None:
             f"{nw_cuda.resident_pairs(k, Lb)}" for k in KERNELS))
     if out_dir:
         Path(out_dir, "ab_kernels.json").write_text(json.dumps(rows, indent=1))
+
+
+def ab_traceback_case(sides: dict, args, Lb: int, opts: dict) -> list:
+    """One traceback case of the A/B: the nw_forward kernel's outputs of
+    this checkout on the pairs `args`, walked by this checkout's kernel and
+    by each side's (name -> another checkout's ops/nw_cuda.py), whose
+    outputs must equal this checkout's bit for bit; each side timed in
+    turns with this checkout (side, this, this, side), 20 launches each,
+    with L2 flushed before each launch (cuda_ms_cold): the render finds
+    F's words in device memory.  Prints max(n_steps), both sides' band rounds
+    (tile_rounds; a side without TRACEBACK_BAND makes one round trip a
+    move) and this checkout's microseconds a round; returns the rows."""
+    bp, _, bi, bj = nw_cuda.launch("nw_forward", *args, IGAP, EGAP,
+                                   max_len=Lb)
+
+    def new():
+        return nw_cuda.launch_traceback(bp, bi, bj, max_len=Lb)
+
+    tb = TracebackResult(*new())
+    B, note = bp.shape[0], opts.get("note", "")
+    steps = int(tb.n_steps.max())
+    rounds = tile_rounds(tb.chain, Lb)
+    b_ms, b_by = traceback_bound(tb, Lb)
+    rows = []
+    for who, mod in sides.items():
+        def old():
+            return mod.launch_traceback(bp, bi, bj, max_len=Lb)
+
+        err = max_abs_err(new(), old())
+        band = getattr(mod, "TRACEBACK_BAND", {}).get(Lb)
+        theirs = (tile_rounds(tb.chain, Lb, band) if band
+                  else tb.n_steps.clamp(min=0).cpu().numpy())
+        t = {who: [], "new": []}
+        for w in (who, "new", "new", who):
+            t[w].append(cuda_ms_cold(new if w == "new" else old, 20))
+        pm, nm = (sum(t[w]) / 2 for w in (who, "new"))
+        rows.append(dict(kernel="traceback", L=Lb, B=B, note=note, side=who,
+                         parent_ms=t[who], new_ms=t["new"], max_abs_err=err,
+                         max_n_steps=steps, max_rounds=int(rounds.max()),
+                         mean_rounds=float(rounds.mean()),
+                         side_max_rounds=int(theirs.max()),
+                         side_band=band, bound_ms=b_ms, bound_by=b_by))
+        print(f"ab traceback  L={Lb} B={B}{note}: equal to {who}; {who} "
+              f"{pm:.4f} ms, new {nm:.4f} ms (L2 flushed), new/{who} "
+              f"{nm / pm:.3f}; max(n_steps) {steps}; rounds {who} "
+              f"{theirs.max()} max / {theirs.mean():.2f} mean, new "
+              f"{rounds.max()} max / {rounds.mean():.2f} mean, "
+              f"{1e3 * pm / max(theirs.max(), 1):.3f} -> "
+              f"{1e3 * nm / max(rounds.max(), 1):.3f} us a round; bound "
+              f"{1e3 * b_ms:.3f} us ({b_by})")
+    return rows
+
+
+def ab_traceback(sides: dict) -> list:
+    """phase_ab's traceback cases alone, each against every side (name
+    -> another checkout's ops/nw_cuda.py, built): the A/B of the band's
+    variants.  The other kernel cases' inputs are drawn but not run, so
+    each case's pairs are phase_ab's."""
+    rows = []
+    for name, args, Lb, opts in kernel_cases(np.random.default_rng(20260)):
+        if name == "traceback":
+            rows += ab_traceback_case(sides, args, Lb, opts)
+        del args
+    return rows
 
 
 def ab_gate(parent: str, pmod) -> list:
@@ -1275,8 +1419,8 @@ def warm(label: str, fn):
     """(fn(), its wall seconds) for a run on a warm engine, traced by
     torch.profiler.  Prints the share of that wall during which the device
     was busy (the union of the device-side events' intervals: kernels,
-    copies, sets) and the device work that leads it; the profiler's own
-    cost is in that wall."""
+    copies, sets), the device work that leads it and the gate's and the
+    traceback's kernel time; the profiler's own cost is in that wall."""
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1302,6 +1446,8 @@ def warm(label: str, fn):
     gate = [v for k, v in per.items()
             if re.search(r"\b(gate_kernel|seg_totals_kernel|seg_scan_kernel)",
                          k)]
+    # the traceback's, one instantiation a bucket
+    walk = [v for k, v in per.items() if re.search(r"\btraceback_kernel", k)]
     # the trace's events hold reference cycles: collect them here, or
     # the cyclic collector's pause lands in a later timed compare
     del prof
@@ -1312,8 +1458,9 @@ def warm(label: str, fn):
           f"{busy:.1f} ms = {100 * busy / (wall * 1e3):.1f} %, leading: "
           + "; ".join(f"{k[:48]} {t:.1f} ms ({n})" for k, (n, t) in top)
           + f"; gate kernels {sum(t for _, t in gate):.2f} ms "
-          f"({sum(n for n, _ in gate)}); then gc.collect() {n_gc} objects "
-          f"in {t_gc:.3f} s")
+          f"({sum(n for n, _ in gate)}); traceback kernels "
+          f"{sum(t for _, t in walk):.2f} ms ({sum(n for n, _ in walk)}); "
+          f"then gc.collect() {n_gc} objects in {t_gc:.3f} s")
     return out, wall
 
 
@@ -2386,6 +2533,12 @@ def main(argv) -> int:
     phase_build()
     if argv[:1] == ["--ab"]:  # python3 chip_smoke.py --ab PARENT [OUT_DIR]
         phase_ab(*argv[1:3])
+        return 0
+    if argv[:1] == ["--ab-traceback"]:  # CHECKOUT [CHECKOUT ...]
+        sides = {root: checkout_nw_cuda(root) for root in argv[1:]}
+        for root, mod in sides.items():
+            build_kernels(mod, f" of {root}")
+        ab_traceback(sides)
         return 0
     if argv[:1] == ["--config3"]:  # [--gate-enum]
         count_plain_gate()

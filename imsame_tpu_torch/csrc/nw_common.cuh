@@ -4,8 +4,7 @@
 // the launch geometry.  Both put K rows on a lane and strips of 32*K rows
 // on a warp; nw_stats.cu walks a pair's strips on one warp (a per-warp
 // boundary in global memory), nw_forward.cu runs them on the warps of one
-// block past L = 256.  traceback.cu takes the buckets and the block's
-// warp count.
+// block past L = 256.  traceback.cu takes the buckets.
 
 #pragma once
 

@@ -33,7 +33,9 @@ handing each strip's bottom boundary to the next through a scratch of 2 x
 2L x 16 bytes per warp, so a launch holds at most as many warps as fit on
 the card at once (``resident_pairs``) and each warp loops over pairs;
 ``nw_forward`` runs a pair's strips at once on the warps of one block,
-one block per pair.  ``traceback`` has one warp per pair at every bucket.
+one block per pair.  ``traceback`` has one warp per pair at every bucket,
+which walks from a band of the pair's bp words copied into shared memory
+(``TRACEBACK_BAND``).
 """
 
 from __future__ import annotations
@@ -59,8 +61,18 @@ _CSRC = os.path.join(
 _SOURCES = ("nw_stats.cu", "nw_forward.cu", "traceback.cu", "gate.cu")
 _HEADERS = ("nw_common.cuh",)  # included by the NW sources and traceback.cu
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# The traceback kernel's band at each bucket, (W, G): a round copies the
+# 2W antidiagonals at and below the walk's cell into shared memory, each
+# row the cells within G of the cell's diagonal offset; W = 0: no band,
+# each move reads its word from device memory (csrc/traceback.cu).  Given
+# to nvcc as -DTB_W<L>=W -DTB_G<L>=G.  Chosen by chip_smoke.py
+# --ab-traceback on the render's chunk shapes (PERF.md §6).
+TRACEBACK_BAND = {128: (0, 2), 256: (0, 2), 512: (64, 4),
+                  1024: (256, 4), 2048: (512, 4), 3072: (512, 4)}
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *(f"-DTB_{k}{L}={v}" for L, band in TRACEBACK_BAND.items()
+      for k, v in zip("WG", band)),
 )
 TILE = 4  # batch multiple: pairs per block up to L = 256 (kWarpsPerBlock)
 LENGTHS = Config.length_buckets  # buckets the kernels are instantiated for
@@ -296,6 +308,8 @@ def launch_traceback(bp, best_i, best_j, *, max_len: int):
             raise ValueError(f"{name} must be int32 {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if bp.data_ptr() % 16:  # the band's rows copy as 16-byte segments
+        raise ValueError("bp must be 16-byte aligned")
     with torch.cuda.device(dev):
         # the kernel writes every word: stats, chain entries, -1 tail
         stats = [torch.empty(B, dtype=torch.int32, device=dev)
