@@ -7,8 +7,8 @@
     python3 chip_smoke.py --config3 --gate-enum  # and with enumeration
 
 Phases, in order but for 9, which runs right after 6 (it reuses 4-6's
-engines, then frees them before 7), and 10, which runs last (it reuses
-4-5's and 8's samples); any failure raises and exits non-zero:
+engines, then frees them before 7), and 10, which runs after 8 (it reuses
+4-5's and 8's samples), before 11; any failure raises and exits non-zero:
 
   1. device  -- requires torch.cuda; prints the card's name and power limit
                 (nvidia-smi), its SMs and max SM clock, and the torch /
@@ -149,14 +149,28 @@ engines, then frees them before 7), and 10, which runs last (it reuses
                 hash; phase 8's first 2,000 queries against the wide db at
                 (1, 4), on phase 8's index split over the four positions,
                 REF_WIDE_DB_2K; the whole wide query against 2,000 db reads
-                at (2, 2), REF_WIDE_QUERY.  Prints each part's walls, peak
-                device memory and launches, the kernels' per-position batch
-                shapes, and a traced warm compare of the 20k at (2, 2).  The
+                at (2, 2), REF_WIDE_QUERY; imsame_tpu_torch.dryrun's
+                dryrun_multichip(8), eight positions on the visible cards
+                taken round-robin, a (4, 2) grid, its 32 of 64 accepts and
+                its one-device engine's pairs and report.  Prints each
+                part's walls, peak device memory and launches, the
+                kernels' per-position batch shapes, and a traced warm
+                compare of the 20k at (2, 2).  The
                 kernels run at per-position batch shapes, but on one card
                 this measures sharding overhead, not a multi-card speedup.
                 With two cards or more it also runs the 20k on "auto" over
                 them (its pairs and report) and the 2k on an engine on
                 cuda:1 alone (the JAX hash); with one, it says it did not.
+ 11. 100k    -- bench.py large_bench's workload, synth_pair(100000, 250,
+                0.5, seed=12345), through TorchEngine(db, Config(),
+                device="cuda"): the index build, a cold compare and a cold
+                render, timed; must accept 50,110 reads (bench.py
+                accepted_ok), and the first 2,000 query reads against the
+                same database must give the JAX engine's count and report
+                hash (REF_100K_2K).  Prints the walls, query reads/s, the
+                report's bytes and sha256, phases, stages, peak device
+                memory, the kernels' batch shapes and a traced warm
+                compare.
 
 A long path that launches a kernel past L = 256 on more pairs than the
 card holds at once fails unless phase 3 held such a batch at that
@@ -218,7 +232,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from imsame_tpu_torch import native
+from imsame_tpu_torch import dryrun, native
+from imsame_tpu_torch.bench_scaling import COUNTED, synth_pair
 from imsame_tpu_torch.config import Config
 from imsame_tpu_torch.constants import MAX_READ_SIZE
 from imsame_tpu_torch.io.fasta import (
@@ -341,6 +356,15 @@ REF_WIDE_DB_2K = (
     2000, "ad159533649da4c5d3097cdf2d64082c4295d8edc8048b0d03a626708c95feb5")
 REF_WIDE_QUERY = (
     1855, "0e530d22a1564587f8e9bd9ae736925c7aa6fd3218639b642cc1657620ef9ef6")
+N_100K = 100_000  # reads a side of phase 11 (bench.py large_bench)
+ACCEPTED_100K = 50_110  # bench.py large_bench's expected_accepted
+# (accepted, sha256 of the report) written by the JAX engine,
+# imsame_tpu.pipeline.TpuEngine(db, Config(mesh_shape=None)) on the CPU,
+# for the first 2,000 query reads of synth_pair(N_100K, 250, 0.5,
+# seed=12345) against all 100,000 database reads
+# (tests/test_torch_scale.py hundredk_anchor).
+REF_100K_2K = (
+    2000, "4beb36ae0bf3aebd825cc12b74bee9248edbabb55bec56f8b0eb570636610367")
 SWEEP_READS = 20000  # reads per sample of the sweep (bench.py sweep_bench)
 SUBPROCESS_TIMEOUT = 300  # seconds, each process of the two-process sweep
 L = 256
@@ -359,9 +383,6 @@ KERNELS = {  # the NW kernels, on code rows: (wrapper, plain version)
     "nw_stats": (nw_cuda.nw_stats, nw.nw_stats_batch),
     "nw_forward": (nw_cuda.nw_forward, nw.nw_forward_batch),
 }
-# every kernel's wrapper, whose launches each path counts
-COUNTED = {"nw_stats": nw_cuda.nw_stats, "nw_forward": nw_cuda.nw_forward,
-           "traceback": nw_cuda.traceback, "gate": gate_cuda.gate}
 # What each kernel replaces: nw_stats_batch_pallas_pipe4, _pipe3, _pipe2,
 # _pipe and nw_stats_batch_pallas; nw_forward_batch_pallas_pipe5 and
 # nw_forward_batch_pallas; the jitted jnp traceback_batch (not Pallas);
@@ -383,22 +404,6 @@ PLAIN_GATE_ON_CARD = [0]
 # (TorchEngine._render_sizes): nw_forward's and the traceback's cases
 RENDER_BATCHES = {128: (2048,), 256: (2048,), 512: (1024,), 1024: (256,),
                   2048: (64, 8), 3072: (24, 8)}
-
-
-def synth_pair(n: int, read_len: int, match_frac: float, seed: int):
-    """bench.py's workload: n random query reads; match_frac of the db
-    reads are ~4%-mutated copies of query reads, the rest random."""
-    rng = np.random.default_rng(seed)
-    q = rng.integers(0, 4, (n, read_len), dtype=np.uint8)
-    nm = int(n * match_frac)
-    db = q[:nm].copy()
-    mask = rng.random((nm, read_len)) < 0.04
-    db[mask] = (db[mask] + rng.integers(1, 4, int(mask.sum()), dtype=np.uint8)) % 4
-    db = np.concatenate(
-        [db, rng.integers(0, 4, (n - nm, read_len), dtype=np.uint8)]
-    )
-    perm = rng.permutation(n)
-    return q, db[perm]
 
 
 def synth_config3(n: int, read_len: int, match_frac: float, sub_rate: float,
@@ -2369,6 +2374,16 @@ def phase_mesh(cases: list, work: dict) -> dict:
                          (REF_LONG_ACCEPTED, REF_LONG_SHA256))
             del eng
 
+        # dryrun_multichip's 8 positions on the visible cards, a (4, 2)
+        # grid: its pairs and report equal its one-device engine's
+        zero_counts()
+        dryrun.dryrun_multichip(8)
+        n = read_counts()
+        check_render_launches("mesh dryrun (4, 2)", n)
+        print(f"mesh dryrun (4, 2): launches {n}")
+        for k, v in n.items():
+            launches[k] += v
+
         w = work.pop("wide")
         torch.cuda.empty_cache()
         eng = mesh_engine(w["db"], (1, 4), index=w["index"], **WIDE_CONFIG)
@@ -2416,6 +2431,63 @@ def phase_mesh(cases: list, work: dict) -> dict:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     check_render_launches("mesh", launches)
+    return launches
+
+
+def phase_100k(cases: list) -> dict:
+    """Phase 11: bench.py large_bench's 100k x 100k workload through a new
+    engine: the index build, a cold compare and a cold render, timed;
+    must accept ACCEPTED_100K reads, and the first 2,000 query reads
+    against the same database must give the JAX engine's count and report
+    hash (REF_100K_2K).  Prints the walls, query reads/s, the report's
+    bytes and sha256, the phases and stages, peak device memory, the
+    kernels' batch shapes and a traced warm compare."""
+    qc, dbc = synth_pair(N_100K, 250, 0.5, seed=12345)
+    q, db = reads_to_seqinfo(qc), reads_to_seqinfo(dbc)
+    shapes = {}
+    restore = record_shapes(shapes)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        eng = TorchEngine(db, Config(), device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = eng.compare(q)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        report = eng.render_report(q, res)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = read_counts()
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"100k: index build {t1 - t0:.3f} s ({eng.index.n_entries} "
+          f"entries), compare {t2 - t1:.3f} s "
+          f"({N_100K / (t2 - t1):.1f} query reads/s), render {t3 - t2:.3f} "
+          f"s, accepted {res.accepted}, candidates {res.n_candidates}, "
+          f"nw_cells {res.nw_cells}, report {len(report)} B, sha256 "
+          f"{hashlib.sha256(report).hexdigest()}, peak device memory "
+          f"{peak:.2f} GiB, launches {launches}")
+    print("100k phases: " + json.dumps(
+        {k: round(v, 4) for k, v in sorted(res.timings.items())}))
+    print("100k stages: " + json.dumps(eng.stage_stats))
+    print_shapes("100k", shapes)
+    assert_checked(shapes, cases)
+    if res.accepted != ACCEPTED_100K:
+        raise AssertionError(f"100k accepted {res.accepted} != "
+                             f"{ACCEPTED_100K}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    check_render_launches("100k", launches)
+    res_w, t_c = warm("100k compare", lambda: eng.compare(q))
+    print(f"100k warm (profiled): compare {t_c:.3f} s")
+    if res_w.pairs != res.pairs:
+        raise AssertionError("a second 100k compare gave other pairs")
+    q2 = reads_to_seqinfo(qc[:2000])
+    res2 = eng.compare(q2)
+    check_anchor("100k 2k", res2, eng.render_report(q2, res2), REF_100K_2K)
     return launches
 
 
@@ -2561,6 +2633,9 @@ def main(argv) -> int:
     paths += [phase_sweep(), phase_wide(work)]
     torch.cuda.empty_cache()
     paths.append(phase_mesh(cases, work))
+    del work
+    torch.cuda.empty_cache()
+    paths.append(phase_100k(cases))
     kernels = []
     for name, where in REPLACES.items():
         mine = [c for c in cases if c["kernel"] == name]

@@ -15,6 +15,13 @@ within a sample with pthreads (src/IMSAME.c:430-462); here:
     instead of hanging it) and the tally's wait for the slowest peer.
   * work split: the sweep stripes its sample pairs across processes by
     process id (orchestrator.AllVsAllRunner host_id / n_hosts).
+  * query sharding: each process may instead take its own contiguous
+    stripe of one sample's query reads (``shard_query_for_host``, offset
+    back to global read ids by ``read_offset_for_host``); a stripe's
+    boundary behaves exactly like the reference's thread boundary (its
+    first read does not receive the previous read's trailing k-mer base,
+    the stream quirk Config.n_threads emulates,
+    src/alignmentFunctions.c:93-105).
   * stat merging: ``allreduce_sum`` adds per-process accepted counts
     across the group (identity with one process).
 
@@ -32,6 +39,8 @@ import os
 from typing import Optional
 
 import torch
+
+from .io.fasta import SeqInfo
 
 # Default bound on the rendezvous and on the tally's wait for peers.
 DEFAULT_TIMEOUT_S = 1800.0
@@ -79,6 +88,25 @@ def init_distributed(
         timeout=datetime.timedelta(seconds=timeout_s),
     )
     return DistContext(process_id, num_processes)
+
+
+def shard_query_for_host(q: SeqInfo, ctx: DistContext) -> SeqInfo:
+    """Contiguous read stripe for this process: reads
+    [pid * ceil(n/P), (pid+1) * ceil(n/P)), clamped to n -- the
+    multi-host analog of the reference's per-thread read ranges
+    (src/IMSAME.c:414,452).  Read indices in a stripe's results are
+    local; add ``read_offset_for_host`` when merging.  One process gets
+    ``q`` itself."""
+    if not ctx.is_distributed:
+        return q
+    lo = read_offset_for_host(q.n_seqs, ctx)
+    return q.slice_reads(lo, lo + -(-q.n_seqs // ctx.num_processes))
+
+
+def read_offset_for_host(n_reads: int, ctx: DistContext) -> int:
+    """Global read id of this process's first stripe read."""
+    per = -(-n_reads // ctx.num_processes)
+    return min(ctx.process_id * per, n_reads)
 
 
 def allreduce_sum(value: int, ctx: DistContext) -> int:

@@ -1,6 +1,8 @@
 """The port's multi-process runtime (imsame_tpu_torch.distributed) held
 against the JAX package's: the single-process context does nothing, a
-rendezvous with a dead peer fails within its timeout, and a REAL
+rendezvous with a dead peer fails within its timeout, the per-host query
+stripes equal JAX's field by field and merge to the reference's thread
+split (n_threads), and a REAL
 4-process sweep -- the port's orchestrator with --distributed over a gloo
 process group on localhost, engines on the CPU -- writes the
 single-process port sweep's and the JAX sweep's files byte for byte, with
@@ -16,18 +18,28 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from imsame_tpu import distributed as jdist
 from imsame_tpu.config import Config as JConfig
+from imsame_tpu.io.fasta import parse_fasta_bytes as jparse
 from imsame_tpu.orchestrator import AllVsAllRunner as JRunner
 from imsame_tpu.orchestrator import list_samples
+from imsame_tpu.pipeline import TpuEngine
+from imsame_tpu_torch.config import Config as TConfig
 from imsame_tpu_torch.distributed import (
     DistContext,
     allreduce_sum,
     init_distributed,
+    read_offset_for_host,
+    shard_query_for_host,
 )
-from util_synth import mutate, random_read
+from imsame_tpu_torch.io.fasta import parse_fasta_bytes as tparse
+from imsame_tpu_torch.pipeline import TorchEngine
+from test_torch_sharded import plain_rows_once  # noqa: F401 (fixture)
+from util_synth import make_pair, mutate, random_read
 
 REPO = Path(__file__).resolve().parent.parent
 # the port's sweep entry point on the CPU (tests ask for the CPU through
@@ -60,6 +72,65 @@ def test_dead_peer_fails_within_timeout():
         init_distributed(f"127.0.0.1:{port}", 2, 0, timeout_s=3)
     assert time.perf_counter() - t0 < 60
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 41])
+def test_host_stripes_match_jax(tmp_path, n):
+    """Every process's stripe and read offset at P = 1..4 processes, on odd
+    and even read counts (stripes past the last read are empty), equal the
+    JAX package's field by field; the stripes tile the reads in order, and
+    each stripe's first base starts a fresh k-mer window."""
+    qp, _ = make_pair(tmp_path, random.Random(n), n_query=n, n_db=1,
+                      read_len=60)
+    data = qp.read_bytes()
+    jq, tq = jparse(data), tparse(data)
+    for P in range(1, 5):
+        codes = []
+        for pid in range(P):
+            jctx, tctx = jdist.DistContext(pid, P), DistContext(pid, P)
+            want, got = (jdist.shard_query_for_host(jq, jctx),
+                         shard_query_for_host(tq, tctx))
+            for f in ("codes", "start", "fresh"):
+                np.testing.assert_array_equal(getattr(got, f),
+                                              getattr(want, f))
+            assert got.headers == want.headers
+            off = read_offset_for_host(n, tctx)
+            assert off == jdist.read_offset_for_host(n, jctx)
+            assert got.headers == tq.headers[off:off + got.n_seqs]
+            if got.total_len:
+                assert got.fresh[0]
+            codes.append(got.codes)
+        np.testing.assert_array_equal(np.concatenate(codes), tq.codes)
+    assert shard_query_for_host(tq, DistContext(0, 1)) is tq
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_host_sharding_matches_thread_split(tmp_path, plain_rows_once, P):
+    """P host stripes of 40 reads (P divides it: ceil(n/P) host stripes ==
+    floor(n/P) thread ranges): the union of per-host accepted pairs, offset
+    back to global read ids, equals the port's single engine with
+    n_threads=P and the JAX engine's -- host boundaries behave exactly
+    like the reference's thread boundaries (src/alignmentFunctions.c:
+    93-105)."""
+    n = 40
+    qp, dp = make_pair(tmp_path, random.Random(91), n_query=n, n_db=n,
+                       read_len=150, sub_rate=0.05, indel_rate=0.02)
+    q, db = tparse(qp.read_bytes()), tparse(dp.read_bytes())
+    want = TorchEngine(db, TConfig(n_threads=P, mesh_shape=None),
+                       device="cpu").compare(q).pairs
+    jq, jdb = jparse(qp.read_bytes()), jparse(dp.read_bytes())
+    assert want == TpuEngine(jdb, JConfig(n_threads=P, mesh_shape=None)
+                             ).compare(jq).pairs
+    eng = TorchEngine(db, TConfig(mesh_shape=None), device="cpu")
+    got, total = set(), 0
+    for pid in range(P):
+        ctx = DistContext(pid, P)
+        res = eng.compare(shard_query_for_host(q, ctx))
+        off = read_offset_for_host(q.n_seqs, ctx)
+        got |= {(r + off, s) for r, s in res.pairs}
+        total += res.accepted
+    assert got == set(want)
+    assert total == len(want)
 
 
 def _write_samples(d: Path, rng: random.Random, n_samples=3, n_reads=24):

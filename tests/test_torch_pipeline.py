@@ -295,8 +295,9 @@ def test_native_source_is_the_ports_own():
 
 def test_port_imports_without_jax(tmp_path):
     """The port never imports jax or imsame_tpu: with both blocked it
-    imports (the sweep's and the mesh's modules included) and runs a tiny
-    compare on the CPU, on one device and on a (1, 2) mesh."""
+    imports (the sweep's, the mesh's, the dry run's and the scaling scan's
+    modules included) and runs a tiny compare on the CPU, on one device and
+    on a (1, 2) mesh."""
     qp, dp = make_pair(tmp_path, random.Random(9), n_query=6, n_db=6,
                        read_len=100)
     code = f"""
@@ -305,7 +306,9 @@ sys.modules["jax"] = None
 sys.modules["imsame_tpu"] = None
 from imsame_tpu_torch.io.fasta import read_fasta
 from imsame_tpu_torch.pipeline import TorchEngine
-from imsame_tpu_torch import distributed, orchestrator, revcomp
+from imsame_tpu_torch import (
+    bench_scaling, distributed, dryrun, orchestrator, revcomp,
+)
 from imsame_tpu_torch.config import Config
 from imsame_tpu_torch.parallel import mesh, sharded
 eng = TorchEngine(read_fasta({str(dp)!r}), device="cpu")

@@ -16,7 +16,8 @@ against the JAX package on the CPU.
     each pair row once, tests/test_torch_sharded.py plain_rows_once).
 
 ``wide_anchors()`` computes the JAX anchors that chip_smoke.py holds the
-card to at config-3's widths (REF_WIDE_DB_2K, REF_WIDE_QUERY)."""
+card to at config-3's widths (REF_WIDE_DB_2K, REF_WIDE_QUERY), and
+``hundredk_anchor()`` the one of its 100k x 100k phase (REF_100K_2K)."""
 
 import hashlib
 
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import bench
 import bench_config3
 import chip_smoke
 from imsame_tpu.config import Config as JConfig
@@ -236,6 +238,15 @@ def test_config3_generator_is_bench_config3s():
         np.testing.assert_array_equal(got, want)
 
 
+def test_100k_generator_is_benchs():
+    """chip_smoke.py's copy of bench.synth_pair makes phase 11's reads
+    (bench.py large_bench's 100k x 100k workload)."""
+    args = (chip_smoke.N_100K, 250, 0.5, 12345)
+    for got, want in zip(chip_smoke.synth_pair(*args),
+                         bench.synth_pair(*args)):
+        np.testing.assert_array_equal(got, want)
+
+
 def wide_anchors():
     """The JAX engine's (accepted, report sha256) on the CPU for
     chip_smoke.py's phase 8: the first 2,000 query reads of config-3's
@@ -260,3 +271,21 @@ def wide_anchors():
             eng.render_report(jq, res)).hexdigest())
         del eng, res, jq, jdb
     return out
+
+
+def hundredk_anchor():
+    """The JAX engine's (accepted, report sha256) on the CPU for
+    chip_smoke.py's phase 11: the first 2,000 query reads of bench.py
+    large_bench's workload (synth_pair(100_000, 250, 0.5, seed=12345))
+    against its whole database (REF_100K_2K).  Takes a few minutes.  Run:
+
+        JAX_PLATFORMS=cpu python -c "import sys; sys.path[:0] = ['.',
+        'tests']; import test_torch_scale as t; print(t.hundredk_anchor())"
+    """
+    qc, dbc = chip_smoke.synth_pair(chip_smoke.N_100K, 250, 0.5, seed=12345)
+    jq, _ = _seqinfos(qc[:2000])
+    jdb, _ = _seqinfos(dbc)
+    eng = TpuEngine(jdb, JConfig(mesh_shape=None))
+    res = eng.compare(jq)
+    return {"REF_100K_2K": (res.accepted, hashlib.sha256(
+        eng.render_report(jq, res)).hexdigest())}
