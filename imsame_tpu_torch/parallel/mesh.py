@@ -43,7 +43,9 @@ class Mesh:
     """A [n_data, n_dict] grid of torch devices (see the module
     docstring).  ``shape`` is {"data": n_data, "dict": n_dict}, ``size``
     the number of positions, ``devices`` the positions' devices in flat
-    order and ``lead`` the first, where merged results land."""
+    order and ``lead`` the first, where merged results land.  ``timer``,
+    where set (the engine's PhaseTimer), counts the bytes of the host
+    arrays sent in ``h2d_bytes``."""
 
     def __init__(self, devices: Sequence[torch.device], n_data: int,
                  n_dict: int):
@@ -54,6 +56,7 @@ class Mesh:
         self.shape = {"data": n_data, "dict": n_dict}
         self.size = n_data * n_dict
         self.lead = self.devices[0]
+        self.timer = None
 
     def grid(self, p: int):
         """(d, k): the data and dict coordinates of position p."""
@@ -62,7 +65,10 @@ class Mesh:
     def _upload(self, part, dev: torch.device) -> torch.Tensor:
         if isinstance(part, torch.Tensor):
             return part.to(dev)
-        return torch.as_tensor(np.ascontiguousarray(part), device=dev)
+        part = np.ascontiguousarray(part)
+        if self.timer is not None:
+            self.timer.count("h2d_bytes", part.nbytes)
+        return torch.as_tensor(part, device=dev)
 
     def _per_position(self, key, part) -> List[torch.Tensor]:
         """part(p) uploaded to each position's device, once per distinct

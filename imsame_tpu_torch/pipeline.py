@@ -67,7 +67,6 @@ its index row (_gate_chunks_routed).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -290,81 +289,99 @@ class TorchEngine:
         ``mesh_devices``: the devices a mesh spans in place of the visible
         ones (parallel/mesh.py make_mesh; repeats allowed, e.g. a grid on
         one card, or on the CPU)."""
-        self.db = db
-        self.cfg = cfg or Config()
-        self.cfg.validate()
-        self.device = torch.device(device)
-        # The NW kernels exist for nw_cuda.LENGTHS only; the CPU's plain
-        # versions take any multiple of 128, as the JAX engine does.
-        missing = sorted(set(self.cfg.length_buckets) - set(nw_cuda.LENGTHS))
-        if missing and _runs_kernels([self.device, *(mesh_devices or ())]):
-            raise ValueError(
-                f"length buckets {missing} have no CUDA kernel: an engine on "
-                f"a card takes buckets of nw_cuda.LENGTHS {nw_cuda.LENGTHS}")
-        self._mesh = self._make_mesh(mesh_devices)
-        if self._mesh is not None:
-            self.device = self._mesh.lead
         self.timer = PhaseTimer()
-        self.db_read_lens = db.read_lens()
-        max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
-        if db.n_seqs:
-            # a db read past the largest length bucket aborts here with the
-            # reference's error, as in the JAX engine
-            self._nw_bucket(max_dlen)
-        with self.timer.phase("index_build"):
-            # A prebuilt index (load_index / index_from_arrays) skips the
-            # build; the reference rebuilds its dictionary from FASTA every
-            # run (src/IMSAME.c:196-289).
-            self.index: KmerIndex = index if index is not None else build_index(db)
-        # One-word index payload (sid << 12 | doff): one gather per
-        # candidate in the gate.  Past it, the wide (pos, sid, db_start)
-        # triple, as in the JAX engine.
-        self._packed_idx = db.n_seqs < PACKED_MAX_READS and max_dlen < 4096
-        # On a mesh the payload splits by row range over "dict" (padded to
-        # a multiple of n_dict rows); db_start replicates.
-        n_dict = self._mesh.shape["dict"] if self._mesh else 1
-        if not self._packed_idx:
-            pos = _pad_rows(np.asarray(self.index.pos, np.int32), n_dict)
-            sid = _pad_rows(np.asarray(self.index.sid, np.int32), n_dict)
-            self._shard_rows = len(pos) // n_dict
-            db_start = self._put(np.asarray(db.start, np.int32))
-            if self._mesh is None:
-                self._d_idx_tab = (self._put(pos), self._put(sid), db_start)
-            else:
-                self._d_idx_tab = list(zip(
-                    self._mesh.put_rows(pos), self._mesh.put_rows(sid),
-                    self._mesh.put(db_start),
-                ))
-        else:
-            if self.index.packed is not None:
-                words = self.index.packed.view(np.int32)
-            else:
-                sid = np.asarray(self.index.sid, np.int64)
-                doff = np.asarray(self.index.pos, np.int64) - db.start[sid]
-                words = ((sid.astype(np.uint32) << np.uint32(12))
-                         | doff.astype(np.uint32)).view(np.int32)
-            words = _pad_rows(words, n_dict)
-            self._shard_rows = len(words) // n_dict
-            self._d_idx_tab = (self._put(words) if self._mesh is None
-                               else self._mesh.put_rows(words))
-        # Device enumeration (Config.gate_enum) needs the packed index
-        # words and the bucket prefix table on the device (4^12 + 1 words);
-        # a mesh takes the host gate, as in the JAX engine.
-        self._use_enum = (bool(self.cfg.gate_enum) and self._packed_idx
-                          and self._mesh is None)
-        self._d_bs = (
-            self._put(np.asarray(self.index.bucket_start, np.int32))
-            if self._use_enum else None
-        )
-        self._d_dlen = self._rep(
-            self._put(np.asarray(self.db_read_lens, np.int32)))
-        self._dp_cache: Dict[int, torch.Tensor] = {}
-        self._nw_cells = 0
-        self._n_cands = 0
-        # Device handles of the last compare()'s query-side tables; the
-        # render path runs the bp kernel on accepted pairs from these.
-        self._last_dev: Optional[Tuple] = None
-        self.stage_stats: Dict[str, tuple] = {}
+        self.timer.trace()
+        with self.timer.phase("engine"):
+            self.db = db
+            self.cfg = cfg or Config()
+            self.cfg.validate()
+            self.device = torch.device(device)
+            # The NW kernels exist for nw_cuda.LENGTHS only; the CPU's
+            # plain versions take any multiple of 128, as the JAX engine
+            # does.
+            missing = sorted(
+                set(self.cfg.length_buckets) - set(nw_cuda.LENGTHS))
+            if missing and _runs_kernels(
+                    [self.device, *(mesh_devices or ())]):
+                raise ValueError(
+                    f"length buckets {missing} have no CUDA kernel: an "
+                    f"engine on a card takes buckets of nw_cuda.LENGTHS "
+                    f"{nw_cuda.LENGTHS}")
+            self._mesh = self._make_mesh(mesh_devices)
+            if self._mesh is not None:
+                self.device = self._mesh.lead
+                self._mesh.timer = self.timer
+            self.db_read_lens = db.read_lens()
+            max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
+            if db.n_seqs:
+                # a db read past the largest length bucket aborts here
+                # with the reference's error, as in the JAX engine
+                self._nw_bucket(max_dlen)
+            with self.timer.phase("index_build"):
+                # A prebuilt index (load_index / index_from_arrays) skips
+                # the build; the reference rebuilds its dictionary from
+                # FASTA every run (src/IMSAME.c:196-289).
+                self.index: KmerIndex = (index if index is not None
+                                         else build_index(db))
+            with self.timer.phase("engine.upload"):
+                # One-word index payload (sid << 12 | doff): one gather per
+                # candidate in the gate.  Past it, the wide (pos, sid,
+                # db_start) triple, as in the JAX engine.
+                self._packed_idx = (db.n_seqs < PACKED_MAX_READS
+                                    and max_dlen < 4096)
+                # On a mesh the payload splits by row range over "dict"
+                # (padded to a multiple of n_dict rows); db_start
+                # replicates.
+                n_dict = self._mesh.shape["dict"] if self._mesh else 1
+                if not self._packed_idx:
+                    pos = _pad_rows(np.asarray(self.index.pos, np.int32),
+                                    n_dict)
+                    sid = _pad_rows(np.asarray(self.index.sid, np.int32),
+                                    n_dict)
+                    self._shard_rows = len(pos) // n_dict
+                    db_start = self._put(np.asarray(db.start, np.int32))
+                    if self._mesh is None:
+                        self._d_idx_tab = (self._put(pos), self._put(sid),
+                                           db_start)
+                    else:
+                        self._d_idx_tab = list(zip(
+                            self._mesh.put_rows(pos),
+                            self._mesh.put_rows(sid),
+                            self._mesh.put(db_start),
+                        ))
+                else:
+                    if self.index.packed is not None:
+                        words = self.index.packed.view(np.int32)
+                    else:
+                        sid = np.asarray(self.index.sid, np.int64)
+                        doff = (np.asarray(self.index.pos, np.int64)
+                                - db.start[sid])
+                        words = ((sid.astype(np.uint32) << np.uint32(12))
+                                 | doff.astype(np.uint32)).view(np.int32)
+                    words = _pad_rows(words, n_dict)
+                    self._shard_rows = len(words) // n_dict
+                    self._d_idx_tab = (self._put(words) if self._mesh is None
+                                       else self._mesh.put_rows(words))
+                # Device enumeration (Config.gate_enum) needs the packed
+                # index words and the bucket prefix table on the device
+                # (4^12 + 1 words); a mesh takes the host gate, as in the
+                # JAX engine.
+                self._use_enum = (bool(self.cfg.gate_enum)
+                                  and self._packed_idx
+                                  and self._mesh is None)
+                self._d_bs = (
+                    self._put(np.asarray(self.index.bucket_start, np.int32))
+                    if self._use_enum else None
+                )
+                self._d_dlen = self._rep(
+                    self._put(np.asarray(self.db_read_lens, np.int32)))
+            self._dp_cache: Dict[int, torch.Tensor] = {}
+            self._nw_cells = 0
+            self._n_cands = 0
+            # Device handles of the last compare()'s query-side tables; the
+            # render path runs the bp kernel on accepted pairs from these.
+            self._last_dev: Optional[Tuple] = None
+            self.stage_stats: Dict[str, tuple] = {}
 
     # ------------------------------------------------------------------
     # Mesh plumbing: the data axis splits gate chunks and NW batches (the
@@ -406,8 +423,10 @@ class TorchEngine:
         return make_mesh(n_data, n_dict, devices)
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        """Upload to the engine's (lead) device."""
-        return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+        """Upload to the engine's (lead) device, counted in h2d_bytes."""
+        x = np.ascontiguousarray(x)
+        self.timer.count("h2d_bytes", x.nbytes)
+        return torch.as_tensor(x, device=self.device)
 
     def _rep(self, t: torch.Tensor):
         """A lead-device table as the engine's steps take it: the tensor
@@ -542,7 +561,9 @@ class TorchEngine:
         ladder of batch sizes; chunks pad up to the smallest ladder size
         that covers the remainder, with (0, 0) pairs whose results are
         dropped.  With ``render=True`` the ladder is re-derived per length
-        bucket (see _render_sizes)."""
+        bucket (see _render_sizes).  With ``count_cells`` the real pairs'
+        cells add to nw_cells and every chunk's B * L * L, padding
+        included, to the counter nw_launched_cells."""
         P = len(r_ids)
         xls = self.db_read_lens[sids]
         yls = qlens[r_ids]
@@ -569,6 +590,8 @@ class TorchEngine:
                 spad = np.zeros(B, np.int32)
                 rpad[: len(chunk)] = r_ids[chunk]
                 spad[: len(chunk)] = sids[chunk]
+                if count_cells:
+                    self.timer.count("nw_launched_cells", B * int(L) ** 2)
                 yield chunk, rpad, spad, int(L)
 
     def _nw_dispatch_pairs(self, r_ids, sids, qlens, dev):
@@ -577,24 +600,24 @@ class TorchEngine:
         gate work before _nw_fetch_pairs reads the results back."""
         d_qp, d_dp, d_qlen, d_dlen = dev
         pending = []
-        t0 = time.perf_counter()
-        for chunk, rpad, spad, L in self._nw_chunks(
-            r_ids, sids, qlens, self.cfg.nw_stats_batches
-        ):
-            rs = np.stack([rpad, spad])
-            if self._mesh is None:
-                res = nw_stats_rows(
-                    d_qp, d_dp, self._put(rs), d_qlen, d_dlen,
-                    self.cfg.igap, self.cfg.egap, max_len=L,
-                )
-            else:
-                res = sharded.nw_stats_step(
-                    self._mesh, d_qp, d_dp, self._mesh.put_cols(rs, flat=True),
-                    d_qlen, d_dlen, self.cfg.igap, self.cfg.egap, max_len=L,
-                )
-            pending.append((chunk, res))
         # sub-span of resolve.nw: host chunking + queueing
-        self.timer.accumulate("nw.dispatch", time.perf_counter() - t0)
+        with self.timer.phase("nw.dispatch"):
+            for chunk, rpad, spad, L in self._nw_chunks(
+                r_ids, sids, qlens, self.cfg.nw_stats_batches
+            ):
+                rs = np.stack([rpad, spad])
+                if self._mesh is None:
+                    res = nw_stats_rows(
+                        d_qp, d_dp, self._put(rs), d_qlen, d_dlen,
+                        self.cfg.igap, self.cfg.egap, max_len=L,
+                    )
+                else:
+                    res = sharded.nw_stats_step(
+                        self._mesh, d_qp, d_dp,
+                        self._mesh.put_cols(rs, flat=True), d_qlen, d_dlen,
+                        self.cfg.igap, self.cfg.egap, max_len=L,
+                    )
+                pending.append((chunk, res))
         return len(r_ids), pending
 
     def _nw_fetch_pairs(self, P: int, pending, label: str = "nw.fetch") -> np.ndarray:
@@ -604,16 +627,14 @@ class TorchEngine:
         out = np.empty((P, 3), np.int64)
         if not pending:
             return out
-        t0 = time.perf_counter()
-        flat = torch.cat([res for _, res in pending], dim=1).cpu().numpy()
-        self.timer.accumulate(label, time.perf_counter() - t0)
-        t1 = time.perf_counter()
-        col = 0
-        for chunk, res in pending:
-            B = res.shape[1]
-            out[chunk] = flat[:, col : col + len(chunk)].T
-            col += B
-        self.timer.accumulate("nw.scatter", time.perf_counter() - t1)
+        with self.timer.phase(label):
+            flat = torch.cat([res for _, res in pending], dim=1).cpu().numpy()
+        with self.timer.phase("nw.scatter"):
+            col = 0
+            for chunk, res in pending:
+                B = res.shape[1]
+                out[chunk] = flat[:, col : col + len(chunk)].T
+                col += B
         return out
 
     # ------------------------------------------------------------------
@@ -681,75 +702,77 @@ class TorchEngine:
         # copies, which may wait for the stream's earlier work) and the
         # gate's launch.
         timer = self.timer
-        t_disp0 = time.perf_counter()
-        for pos, take, n_pad in self._gate_spans(len(hits), window):
-            sl = slice(pos, pos + take)
-            if wide:
-                with timer.phase("gate.encode"):
-                    # (hit, read id, qoff, valid): the mesh step masks the
-                    # padding with the fourth row
-                    cand = np.zeros((4, n_pad), np.int32)
-                    cand[0, :take] = hits[sl]
-                    cand[1, :take] = rids[sl]
-                    cand[2, :take] = qoffs[sl]
-                    cand[3, :take] = 1
-                with timer.phase("gate.upload"):
-                    d_cand = (self._put(cand[:3]) if mesh is None
-                              else mesh.put_cols(cand))
-                with timer.phase("gate.launch"):
-                    if mesh is None:
-                        bits = flat_gate(
+        with timer.phase("gate.dispatch"):
+            for pos, take, n_pad in self._gate_spans(len(hits), window):
+                sl = slice(pos, pos + take)
+                if wide:
+                    with timer.phase("gate.encode"):
+                        # (hit, read id, qoff, valid): the mesh step masks
+                        # the padding with the fourth row
+                        cand = np.zeros((4, n_pad), np.int32)
+                        cand[0, :take] = hits[sl]
+                        cand[1, :take] = rids[sl]
+                        cand[2, :take] = qoffs[sl]
+                        cand[3, :take] = 1
+                    with timer.phase("gate.upload"):
+                        d_cand = (self._put(cand[:3]) if mesh is None
+                                  else mesh.put_cols(cand))
+                    with timer.phase("gate.launch"):
+                        if mesh is None:
+                            bits = flat_gate(
+                                d_qp, d_dp, d_qlen, d_dlen,
+                                self._d_idx_tab, d_cand, d_thr,
+                                window=window,
+                            )
+                        else:
+                            bits = sharded.gate_step_wide(
+                                mesh, d_qp, d_dp, d_qlen, d_dlen,
+                                self._d_idx_tab, d_cand, d_thr,
+                                window=window, shard_rows=self._shard_rows,
+                            )
+                elif seg:
+                    with timer.phase("gate.encode"):
+                        # segments <= candidates, so n_pad slots never
+                        # overflow
+                        nat = native.seg_encode(
+                            rids[sl], qoffs[sl], hits[sl], n_pad, n_pad
+                        )
+                        if nat is not None:
+                            cand1, rt, rb, nseg = nat
+                            rt, rb = rt[:nseg], rb[:nseg]
+                        else:
+                            cand1, rt, rb = encode_seg_chunk(
+                                rids[sl], qoffs[sl], hits[sl], n_pad
+                            )
+                    with timer.phase("gate.upload"):
+                        d_cand = [self._put(a) for a in (cand1, rt, rb)]
+                    with timer.phase("gate.launch"):
+                        bits = flat_gate_seg(
                             d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                            d_cand, d_thr, window=window,
+                            *d_cand, d_thr, window=window,
                         )
-                    else:
-                        bits = sharded.gate_step_wide(
-                            mesh, d_qp, d_dp, d_qlen, d_dlen,
-                            self._d_idx_tab, d_cand, d_thr, window=window,
-                            shard_rows=self._shard_rows,
-                        )
-            elif seg:
-                with timer.phase("gate.encode"):
-                    # segments <= candidates, so n_pad slots never overflow
-                    nat = native.seg_encode(
-                        rids[sl], qoffs[sl], hits[sl], n_pad, n_pad
-                    )
-                    if nat is not None:
-                        cand1, rt, rb, nseg = nat
-                        rt, rb = rt[:nseg], rb[:nseg]
-                    else:
-                        cand1, rt, rb = encode_seg_chunk(
-                            rids[sl], qoffs[sl], hits[sl], n_pad
-                        )
-                with timer.phase("gate.upload"):
-                    d_cand = [self._put(a) for a in (cand1, rt, rb)]
-                with timer.phase("gate.launch"):
-                    bits = flat_gate_seg(
-                        d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                        *d_cand, d_thr, window=window,
-                    )
-            else:
-                with timer.phase("gate.encode"):
-                    cand = np.zeros((2, n_pad), np.int32)
-                    cand[0, :take] = hits[sl]
-                    cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
-                with timer.phase("gate.upload"):
-                    d_cand = (self._put(cand) if mesh is None
-                              else mesh.put_cols(cand))
-                with timer.phase("gate.launch"):
-                    if mesh is None:
-                        bits = flat_gate_packed(
-                            d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                            d_cand, d_thr, window=window,
-                        )
-                    else:
-                        bits = sharded.gate_step(
-                            mesh, d_qp, d_dp, d_qlen, d_dlen,
-                            self._d_idx_tab, d_cand, d_thr, window=window,
-                            shard_rows=self._shard_rows,
-                        )
-            pending.append((sl, slice(0, take), bits))
-        timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+                else:
+                    with timer.phase("gate.encode"):
+                        cand = np.zeros((2, n_pad), np.int32)
+                        cand[0, :take] = hits[sl]
+                        cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
+                    with timer.phase("gate.upload"):
+                        d_cand = (self._put(cand) if mesh is None
+                                  else mesh.put_cols(cand))
+                    with timer.phase("gate.launch"):
+                        if mesh is None:
+                            bits = flat_gate_packed(
+                                d_qp, d_dp, d_qlen, d_dlen,
+                                self._d_idx_tab, d_cand, d_thr,
+                                window=window,
+                            )
+                        else:
+                            bits = sharded.gate_step(
+                                mesh, d_qp, d_dp, d_qlen, d_dlen,
+                                self._d_idx_tab, d_cand, d_thr,
+                                window=window, shard_rows=self._shard_rows,
+                            )
+                pending.append((sl, slice(0, take), bits))
         return pending
 
     def _gate_chunks_routed(self, rids, hits, qoffs, d_thr, dev, window):
@@ -766,14 +789,6 @@ class TorchEngine:
         n_dict = mesh.shape["dict"]
         rows = self._shard_rows
         timer = self.timer
-        t_disp0 = time.perf_counter()
-        t_enc0 = t_disp0
-        shard = hits // np.int32(rows)
-        order = np.argsort(shard, kind="stable")
-        counts = np.bincount(shard, minlength=n_dict).astype(np.int64)
-        shard_off = np.zeros(n_dict + 1, np.int64)
-        np.cumsum(counts, out=shard_off[1:])
-        rq = _rq_words(rids, qoffs)
         # shard slots a chunk: the largest chunk's share, or the remainder
         # padded to 32 candidates a position (bits pack 32 per word per
         # shard)
@@ -782,42 +797,48 @@ class TorchEngine:
                                  32 * mesh.size)[0] // n_dict
         qpos = np.zeros(n_dict, np.int64)
         pending = []
-        while (counts - qpos).max(initial=0) > 0:
-            rem = counts - qpos
-            S = min(s_max, -(-int(rem.max()) // gran) * gran)
-            C = S * n_dict
-            seg = S // mesh.shape["data"]  # slots per position
-            cand = np.zeros((2, C), np.int32)
-            perm = np.full(C, -1, np.int64)
-            for k in range(n_dict):
-                take = int(min(S, rem[k]))
-                if take == 0:
-                    continue
-                a = shard_off[k] + qpos[k]
-                idxs = order[a : a + take]
-                j = np.arange(take, dtype=np.int64)
-                posn = (j // seg * n_dict + k) * seg + (j % seg)
-                cand[0, posn] = hits[idxs]
-                cand[1, posn] = rq[idxs]
-                perm[posn] = idxs
-                qpos[k] += take
-            # padding rows stay inside the owning shard's row range (local
-            # row 0 after the step's rebase)
-            pad = np.flatnonzero(perm < 0)
-            cand[0, pad] = (pad // seg % n_dict).astype(np.int32) * rows
-            timer.accumulate("gate.encode", time.perf_counter() - t_enc0)
-            with timer.phase("gate.upload"):
-                d_cand = mesh.put_cols(cand, flat=True)
-            with timer.phase("gate.launch"):
-                bits = sharded.gate_step_routed(
-                    mesh, *dev, self._d_idx_tab, d_cand, d_thr,
-                    window=window, shard_rows=rows,
-                )
-            t_enc0 = time.perf_counter()
-            valid = perm >= 0
-            pending.append((perm[valid], valid, bits))
-        timer.accumulate("gate.encode", time.perf_counter() - t_enc0)
-        timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        with timer.phase("gate.dispatch"):
+            with timer.phase("gate.encode"):
+                shard = hits // np.int32(rows)
+                order = np.argsort(shard, kind="stable")
+                counts = np.bincount(shard, minlength=n_dict).astype(np.int64)
+                shard_off = np.zeros(n_dict + 1, np.int64)
+                np.cumsum(counts, out=shard_off[1:])
+                rq = _rq_words(rids, qoffs)
+            while (counts - qpos).max(initial=0) > 0:
+                with timer.phase("gate.encode"):
+                    rem = counts - qpos
+                    S = min(s_max, -(-int(rem.max()) // gran) * gran)
+                    C = S * n_dict
+                    seg = S // mesh.shape["data"]  # slots per position
+                    cand = np.zeros((2, C), np.int32)
+                    perm = np.full(C, -1, np.int64)
+                    for k in range(n_dict):
+                        take = int(min(S, rem[k]))
+                        if take == 0:
+                            continue
+                        a = shard_off[k] + qpos[k]
+                        idxs = order[a : a + take]
+                        j = np.arange(take, dtype=np.int64)
+                        posn = (j // seg * n_dict + k) * seg + (j % seg)
+                        cand[0, posn] = hits[idxs]
+                        cand[1, posn] = rq[idxs]
+                        perm[posn] = idxs
+                        qpos[k] += take
+                    # padding rows stay inside the owning shard's row range
+                    # (local row 0 after the step's rebase)
+                    pad = np.flatnonzero(perm < 0)
+                    cand[0, pad] = ((pad // seg % n_dict).astype(np.int32)
+                                    * rows)
+                    valid = perm >= 0
+                with timer.phase("gate.upload"):
+                    d_cand = mesh.put_cols(cand, flat=True)
+                with timer.phase("gate.launch"):
+                    bits = sharded.gate_step_routed(
+                        mesh, *dev, self._d_idx_tab, d_cand, d_thr,
+                        window=window, shard_rows=rows,
+                    )
+                pending.append((perm[valid], valid, bits))
         return pending
 
     def _enum_prepare(self, q: SeqInfo, dev):
@@ -849,18 +870,18 @@ class TorchEngine:
                 self._put(to.astype(np.int32)),
             )
         pending = []
-        t_disp0 = time.perf_counter()
-        for pos, take, n_pad in self._gate_spans(N, window):
-            # no host encoding or upload: the chunk's addressing and the
-            # gate are its launches
-            with self.timer.phase("gate.launch"):
-                bits = enum_gate_chunk(
-                    d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab, d_thr,
-                    lo_g, scum, start_off, d_hasb, pos,
-                    chunk=n_pad, window=window, row_len=d_qp.shape[1] * 16,
-                )
-            pending.append((slice(pos, pos + take), slice(0, take), bits))
-        self.timer.accumulate("gate.dispatch", time.perf_counter() - t_disp0)
+        with self.timer.phase("gate.dispatch"):
+            for pos, take, n_pad in self._gate_spans(N, window):
+                # no host encoding or upload: the chunk's addressing and
+                # the gate are its launches
+                with self.timer.phase("gate.launch"):
+                    bits = enum_gate_chunk(
+                        d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab, d_thr,
+                        lo_g, scum, start_off, d_hasb, pos, chunk=n_pad,
+                        window=window, row_len=d_qp.shape[1] * 16,
+                    )
+                pending.append((slice(pos, pos + take), slice(0, take),
+                                bits))
         return pending
 
     def _gate_chunks_fetch(self, pending, N):
@@ -871,9 +892,9 @@ class TorchEngine:
         exact = np.zeros(N, bool)
         if not pending:
             return passes, exact
-        t_f0 = time.perf_counter()
-        flat = torch.cat([bits for _, _, bits in pending], dim=1).cpu().numpy()
-        self.timer.accumulate("gate.fetch", time.perf_counter() - t_f0)
+        with self.timer.phase("gate.fetch"):
+            flat = torch.cat([bits for _, _, bits in pending],
+                             dim=1).cpu().numpy()
         col = 0
         for dest, sel, bits in pending:
             nw = bits.shape[1]
@@ -965,6 +986,16 @@ class TorchEngine:
         return F
 
     def compare(self, q: SeqInfo) -> PipelineResult:
+        """The reads of ``q`` against the db: accepted pairs and counters.
+        ``timings`` holds the engine's phase sums up to the compare's end
+        (they add up over an engine's compares)."""
+        self.timer.trace()
+        with self.timer.phase("compare"):
+            res = self._compare(q)
+        res.timings = dict(self.timer.items())
+        return res
+
+    def _compare(self, q: SeqInfo) -> PipelineResult:
         cfg = self.cfg
         db = self.db
         idx = self.index
@@ -1148,9 +1179,10 @@ class TorchEngine:
                         return t_r[keep], t_h[keep], t_q[keep]
 
                 pr1, ps1 = fin1()
-                cr1, cs1, ck1, key1 = self._dedup_pairs(
-                    pr1, ps1, rejected_keys
-                )
+                with self.timer.phase("resolve.judge"):
+                    cr1, cs1, ck1, key1 = self._dedup_pairs(
+                        pr1, ps1, rejected_keys
+                    )
                 ss["s1"] = (self._n_cands - c0, len(pr1), len(cr1))
                 with self.timer.phase("resolve.nw"):
                     P1, pend1 = self._nw_dispatch_pairs(cr1, cs1, qlens, dev)
@@ -1172,10 +1204,11 @@ class TorchEngine:
 
                 with self.timer.phase("resolve.nw"):
                     results1 = self._nw_fetch_pairs(P1, pend1, "nw.fetch1")
-                self._judge_and_replay(
-                    results1, ck1, pr1, ps1, key1,
-                    rejected_keys, resolved, accepted_records, cfg,
-                )
+                with self.timer.phase("resolve.judge"):
+                    self._judge_and_replay(
+                        results1, ck1, pr1, ps1, key1,
+                        rejected_keys, resolved, accepted_records, cfg,
+                    )
 
                 leftover = np.flatnonzero(~resolved & (N_r > F) & has_pass)
                 fin3 = None
@@ -1193,9 +1226,10 @@ class TorchEngine:
                 # reads are disjoint from spec, so their pairs join as
                 # wave B and one combined judge replays both stream
                 # segments.
-                cr2, cs2, ck2, key2 = self._dedup_pairs(
-                    pr2, ps2, rejected_keys
-                )
+                with self.timer.phase("resolve.judge"):
+                    cr2, cs2, ck2, key2 = self._dedup_pairs(
+                        pr2, ps2, rejected_keys
+                    )
                 ss["s2"] = (
                     int(N_r[spec].sum() - len(spec) * F) if len(spec) else 0,
                     len(pr2), len(cr2),
@@ -1206,9 +1240,10 @@ class TorchEngine:
                 ps3 = np.empty(0, np.int64)
                 if fin3 is not None:
                     pr3, ps3 = fin3()
-                cr3, cs3, ck3, key3 = self._dedup_pairs(
-                    pr3, ps3, rejected_keys, extra=ck2
-                )
+                with self.timer.phase("resolve.judge"):
+                    cr3, cs3, ck3, key3 = self._dedup_pairs(
+                        pr3, ps3, rejected_keys, extra=ck2
+                    )
                 ss["s3"] = (
                     int(N_r[leftover].sum() - len(leftover) * F)
                     if len(leftover) else 0,
@@ -1219,25 +1254,24 @@ class TorchEngine:
                     results2 = self._nw_fetch_pairs(P2, pend2, "nw.fetch2")
                     results3 = self._nw_fetch_pairs(P3, pend3, "nw.fetch3")
                 if len(pr2) or len(pr3):
-                    self._judge_and_replay(
-                        np.concatenate([results2, results3]),
-                        np.concatenate([ck2, ck3]),
-                        np.concatenate([pr2, pr3]),
-                        np.concatenate([ps2, ps3]),
-                        np.concatenate([key2, key3]),
-                        rejected_keys, resolved, accepted_records, cfg,
-                    )
+                    with self.timer.phase("resolve.judge"):
+                        self._judge_and_replay(
+                            np.concatenate([results2, results3]),
+                            np.concatenate([ck2, ck3]),
+                            np.concatenate([pr2, pr3]),
+                            np.concatenate([ps2, ps3]),
+                            np.concatenate([key2, key3]),
+                            rejected_keys, resolved, accepted_records, cfg,
+                        )
 
-        with self.timer.phase("render"):
-            accepted_records.sort(key=lambda a: a.qread)
-
+        accepted_records.sort(key=lambda a: a.qread)
         return PipelineResult(
             accepted=len(accepted_records),
             n_query=n,
             n_db=db.n_seqs,
             pairs=[(a.qread, a.dbread) for a in accepted_records],
             records=accepted_records,
-            timings=dict(self.timer.items()),
+            timings={},
             nw_cells=self._nw_cells,
             n_candidates=self._n_cands,
         )
@@ -1292,25 +1326,29 @@ class TorchEngine:
         the two kernels must agree on every accepted pair."""
         if not pending:
             return
-        flat = torch.cat([head for _, head, _ in pending]).cpu().numpy()
-        row = 0
-        for chunk, head, chain in pending:
-            host = flat[row : row + head.shape[0]]
-            row += head.shape[0]
-            lengths, idents, nsteps = host[:, 0], host[:, 1], host[:, 2]
-            chains = host[:, 3:]
-            need = int(nsteps[: len(chunk)].max()) + 1
-            if need > self._CHAIN_PREFIX:
-                W = self._CHAIN_PREFIX
-                while W < need:
-                    W *= 2
-                chains = chain[:, :W].cpu().numpy()
-            for b, i in enumerate(chunk):
-                rec = todo[i]
-                assert int(lengths[b]) == rec.length
-                assert int(idents[b]) == rec.identities
-                rec.n_steps = int(nsteps[b])
-                rec.chain = chains[b]
+        timer = self.timer
+        with timer.phase("render.fetch"):
+            flat = torch.cat([head for _, head, _ in pending]).cpu().numpy()
+        with timer.phase("render.collect"):
+            row = 0
+            for chunk, head, chain in pending:
+                host = flat[row : row + head.shape[0]]
+                row += head.shape[0]
+                lengths, idents, nsteps = host[:, 0], host[:, 1], host[:, 2]
+                chains = host[:, 3:]
+                need = int(nsteps[: len(chunk)].max()) + 1
+                if need > self._CHAIN_PREFIX:
+                    W = self._CHAIN_PREFIX
+                    while W < need:
+                        W *= 2
+                    with timer.phase("render.fetch"):
+                        chains = chain[:, :W].cpu().numpy()
+                for b, i in enumerate(chunk):
+                    rec = todo[i]
+                    assert int(lengths[b]) == rec.length
+                    assert int(idents[b]) == rec.identities
+                    rec.n_steps = int(nsteps[b])
+                    rec.chain = chains[b]
 
     def _materialize_chains(self, records: List[AcceptedRead], dev=None) -> None:
         """Produce traceback chains for accepted pairs by running the
@@ -1326,7 +1364,9 @@ class TorchEngine:
             return
         dev = dev if dev is not None else self._last_dev
         assert dev is not None, "render before compare"
-        self._render_collect_chains(todo, self._render_dispatch_chains(todo, dev))
+        with self.timer.phase("render.dispatch"):
+            pending = self._render_dispatch_chains(todo, dev)
+        self._render_collect_chains(todo, pending)
 
     def render_report(
         self, q: SeqInfo, result: PipelineResult, dev=None
@@ -1336,20 +1376,37 @@ class TorchEngine:
         native host library when available (batched backtrack + 60-col
         render, native/host.c imsame_render_blocks); the Python path below
         is the bit-identical fallback.  ``dev``: see _materialize_chains
-        (default: the last compare's tables)."""
-        self._materialize_chains(result.records, dev=dev)
+        (default: the last compare's tables).  Afterwards
+        ``result.timings`` holds the engine's phase sums up to the
+        render's end, its ``render_report`` and ``render.*`` phases
+        included."""
+        timer = self.timer
+        timer.trace()
+        with timer.phase("render_report"):
+            self._materialize_chains(result.records, dev=dev)
+            recs = result.records
+            blocks = None
+            if recs and native.lib is not None:
+                with timer.phase("render.blocks"):
+                    blocks = self._render_blocks_native(q, recs)
+            with timer.phase("render.format"):
+                if blocks is not None:
+                    out = bytearray()
+                    for a, block in zip(recs, blocks):
+                        out += format_record(
+                            a.qread, a.dbread, a.identities, a.length,
+                            a.ylen, block,
+                        )
+                    out = bytes(out)
+                else:
+                    out = self._render_python(q, recs)
+        result.timings = dict(timer.items())
+        return out
+
+    def _render_python(self, q: SeqInfo, recs) -> bytes:
+        """The report without the native library: each record's
+        backtrack and block in Python."""
         db = self.db
-        recs = result.records
-        if recs and native.lib is not None:
-            blocks = self._render_blocks_native(q, recs)
-            if blocks is not None:
-                out = bytearray()
-                for a, block in zip(recs, blocks):
-                    out += format_record(
-                        a.qread, a.dbread, a.identities, a.length, a.ylen,
-                        block,
-                    )
-                return bytes(out)
         out = bytearray()
         for a in recs:
             xs = int(db.start[a.dbread])
