@@ -1061,8 +1061,7 @@ class TorchEngine:
                     return (idx.packed[hits] >> np.uint32(12)).astype(np.int64)
                 return np.asarray(idx.sid[hits], np.int64)
 
-            def gate_begin(read_ids, from_rank, to_rank, prebuilt=None,
-                           allow_small=True):
+            def gate_begin(read_ids, from_rank, to_rank, allow_small=True):
                 """Queue a gate for a rank window WITHOUT waiting; returns
                 a closure that fetches and maps the passes later, so the
                 gate's device time hides behind the NW wave and the
@@ -1081,14 +1080,12 @@ class TorchEngine:
                     N = int(np.maximum(
                         np.minimum(to, N_r) - np.minimum(frm, N_r), 0).sum())
                 else:
-                    if prebuilt is not None:
-                        rids, hits, qoffs = prebuilt
-                    else:
-                        with self.timer.phase("gate.build"):
-                            rids, hits, qoffs = build_flat(
-                                stream, q_start, read_ids, from_rank, to_rank
-                            )
+                    with self.timer.phase("gate.build"):
+                        rids, hits, qoffs = build_flat(
+                            stream, q_start, read_ids, from_rank, to_rank
+                        )
                     N = len(hits)
+                    self.timer.count("gate_built_cands", N)
                 self._n_cands += N
                 w_small = self.cfg.gate_window_small
                 use_small = 0 < w_small < window and (
@@ -1137,46 +1134,24 @@ class TorchEngine:
                 # queues behind that wave; only then is wave 1 fetched.
                 # The rare reads whose stage-1 pairs all got rejected gate
                 # their remainder afterwards, and one final NW wave
-                # resolves everything stage 2 surfaced.
+                # resolves everything stage 2 surfaced.  Each stage builds
+                # the [F, N_r) candidate tails of only the reads it gates,
+                # when it is queued: stage 2's build runs while the device
+                # works on wave 1.  With device enumeration nothing is
+                # built: stages 2 and 3 enumerate their rank windows on the
+                # device.  Up to SHORT_WINDOW stage 1 keeps the full
+                # extension window (allow_small=False): half its candidates
+                # are true-pair seeds whose walks escape the small tier
+                # anyway.
                 F = self.first_window()
                 all_reads = np.flatnonzero(N_r > 0)
                 c0 = self._n_cands
-                # Stage 1 queued + speculative tail build: while stage 1's
-                # chunks compute on the device, the host builds the
-                # [F, N_r) candidate tails of ALL reads -- stage 2 gates
-                # the no-pass subset and stage 3 the rejected-leftover
-                # subset, both row-compressions of this one array.  With
-                # device enumeration nothing is built: stages 2 and 3
-                # enumerate their rank windows on the device.  Up to
-                # SHORT_WINDOW stage 1 keeps the full extension window
-                # (allow_small=False): half its candidates are true-pair
-                # seeds whose walks escape the small tier anyway.
                 fin1 = gate_begin(
                     all_reads,
                     np.zeros(len(all_reads), np.int64),
                     np.minimum(N_r[all_reads], F),
                     allow_small=False,
                 )
-                tail_pre = None
-                if enum is None:
-                    with self.timer.phase("gate.build"):
-                        tail_reads = np.flatnonzero(N_r > F)
-                        if len(tail_reads):
-                            tail_pre = build_flat(
-                                stream, q_start, tail_reads,
-                                np.full(len(tail_reads), F, np.int64),
-                                N_r[tail_reads],
-                            )
-
-                def tail_rows(keep_read):
-                    """The speculative tail's candidates of the reads that
-                    keep_read marks (None with device enumeration)."""
-                    if tail_pre is None:
-                        return None
-                    t_r, t_h, t_q = tail_pre
-                    with self.timer.phase("gate.build"):
-                        keep = keep_read[t_r]
-                        return t_r[keep], t_h[keep], t_q[keep]
 
                 pr1, ps1 = fin1()
                 with self.timer.phase("resolve.judge"):
@@ -1198,8 +1173,7 @@ class TorchEngine:
                     # Stage 2 queued behind wave 1 and fetched only after
                     # judging: its compute overlaps the host judging.
                     fin2 = gate_begin(
-                        spec, np.full(len(spec), F, np.int64), N_r[spec],
-                        prebuilt=tail_rows(~has_pass),
+                        spec, np.full(len(spec), F, np.int64), N_r[spec]
                     )
 
                 with self.timer.phase("resolve.nw"):
@@ -1217,7 +1191,7 @@ class TorchEngine:
                     # computes while the host waits on stage 2.
                     fin3 = gate_begin(
                         leftover, np.full(len(leftover), F, np.int64),
-                        N_r[leftover], prebuilt=tail_rows(has_pass & ~resolved),
+                        N_r[leftover],
                     )
                 if fin2 is not None:
                     pr2, ps2 = fin2()
