@@ -700,7 +700,8 @@ class TorchEngine:
         # gate.encode, gate.upload and gate.launch are sub-spans of
         # gate.dispatch: the chunk's host encoding, its uploads (pageable
         # copies, which may wait for the stream's earlier work) and the
-        # gate's launch.
+        # gate's launch.  The counter gate_cand_bytes sums the bytes of
+        # the candidate arrays each chunk uploads, in every format.
         timer = self.timer
         with timer.phase("gate.dispatch"):
             for pos, take, n_pad in self._gate_spans(len(hits), window):
@@ -715,8 +716,10 @@ class TorchEngine:
                         cand[2, :take] = qoffs[sl]
                         cand[3, :take] = 1
                     with timer.phase("gate.upload"):
-                        d_cand = (self._put(cand[:3]) if mesh is None
-                                  else mesh.put_cols(cand))
+                        sent = cand[:3] if mesh is None else cand
+                        timer.count("gate_cand_bytes", sent.nbytes)
+                        d_cand = (self._put(sent) if mesh is None
+                                  else mesh.put_cols(sent))
                     with timer.phase("gate.launch"):
                         if mesh is None:
                             bits = flat_gate(
@@ -745,6 +748,8 @@ class TorchEngine:
                                 rids[sl], qoffs[sl], hits[sl], n_pad
                             )
                     with timer.phase("gate.upload"):
+                        timer.count("gate_cand_bytes",
+                                    cand1.nbytes + rt.nbytes + rb.nbytes)
                         d_cand = [self._put(a) for a in (cand1, rt, rb)]
                     with timer.phase("gate.launch"):
                         bits = flat_gate_seg(
@@ -757,6 +762,7 @@ class TorchEngine:
                         cand[0, :take] = hits[sl]
                         cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
                     with timer.phase("gate.upload"):
+                        timer.count("gate_cand_bytes", cand.nbytes)
                         d_cand = (self._put(cand) if mesh is None
                                   else mesh.put_cols(cand))
                     with timer.phase("gate.launch"):
@@ -832,6 +838,7 @@ class TorchEngine:
                                     * rows)
                     valid = perm >= 0
                 with timer.phase("gate.upload"):
+                    timer.count("gate_cand_bytes", cand.nbytes)
                     d_cand = mesh.put_cols(cand, flat=True)
                 with timer.phase("gate.launch"):
                     bits = sharded.gate_step_routed(

@@ -2,8 +2,8 @@
 timing.py PhaseTimer): under torch.profiler each phase is an
 ``imsame.<name>`` range nested as the engine's layers are; with no
 profiler recording no range is entered; the phase sums keep their names;
-the counters nw_launched_cells and h2d_bytes count what the engine
-launches and sends."""
+the counters nw_launched_cells, h2d_bytes and gate_cand_bytes count
+what the engine launches and sends."""
 
 import random
 
@@ -221,3 +221,69 @@ def test_upload_bytes_on_a_mesh_count_host_arrays_once(samples):
         assert res.accepted > 0 and eng.render_report(q, res)
     assert eng._mesh.timer is eng.timer
     assert dict(eng.timer.counts())["h2d_bytes"] == sum(sent)
+
+
+# gate candidate formats: (PACKED_MAX_READS, query reads, mesh grid, the
+# rows of each array sent, or None for the seg words' three 1-D arrays)
+GATE_FORMATS = {
+    "seg": (None, 40, None, None),
+    "two words, wide index": (30, 20, None, 2),
+    "three words": (16, 40, None, 3),
+    "mesh two words": (None, 40, (2, 1), 2),
+    "mesh routed": (None, 40, (2, 2), 2),
+    "mesh three words": (16, 40, (2, 1), 4),
+}
+
+
+@pytest.mark.parametrize("fmt", list(GATE_FORMATS))
+def test_gate_candidate_bytes_are_what_the_dispatch_sends(samples, fmt):
+    """gate_cand_bytes sums the candidate arrays the gate's dispatch hands
+    to _put (one device) or Mesh.put_cols (a mesh): seg words and their
+    row tables, two words, three words (four on a mesh, with the valid
+    row), the routed planner's two words."""
+    from imsame_tpu_torch import pipeline
+
+    packed_max, n_q, grid, rows = GATE_FORMATS[fmt]
+    sent, inside = [], []
+    put, put_cols = TorchEngine._put, Mesh.put_cols
+    dispatch = TorchEngine._gate_chunks_dispatch
+
+    def watched_dispatch(self, *a, **kw):
+        inside.append(True)
+        try:
+            return dispatch(self, *a, **kw)
+        finally:
+            inside.pop()
+
+    def watched_put(self, x):
+        if inside:
+            sent.append(np.ascontiguousarray(x))
+        return put(self, x)
+
+    def watched_put_cols(self, x, flat=False):
+        if inside:
+            sent.append(np.ascontiguousarray(x))
+        return put_cols(self, x, flat)
+
+    q, db = samples
+    q = q.slice_reads(0, n_q)
+    cfg = Config(**SMALL) if grid is None else Config(mesh_shape=grid)
+    with pytest.MonkeyPatch.context() as mp:
+        if packed_max is not None:
+            mp.setattr(pipeline, "PACKED_MAX_READS", packed_max)
+        mp.setattr(TorchEngine, "_gate_chunks_dispatch", watched_dispatch)
+        mp.setattr(TorchEngine, "_put", watched_put)
+        mp.setattr(Mesh, "put_cols", watched_put_cols)
+        eng = TorchEngine(db, cfg, device="cpu",
+                          mesh_devices=None if grid is None
+                          else ["cpu"] * (grid[0] * grid[1]))
+        res = eng.compare(q)
+    assert res.accepted > 0 and sent
+    counts = dict(eng.timer.counts())
+    assert counts["gate_cand_bytes"] == sum(x.nbytes for x in sent)
+    if rows is None:
+        assert all(x.ndim == 1 for x in sent) and len(sent) % 3 == 0
+    else:
+        assert all(x.shape[0] == rows for x in sent)
+        # 4 B a row and a slot, the slots padded to 32 a data shard
+        assert counts["gate_cand_bytes"] >= 4 * rows * res.n_candidates
