@@ -104,10 +104,10 @@ def _load():
         i32, i32, i32, ctypes.c_int64, ctypes.c_int64, i32, i32, i32,
     ]
 
-    lib.imsame_render_blocks.restype = ctypes.c_int32
-    lib.imsame_render_blocks.argtypes = [
-        i32, ctypes.c_int64, i32, i32, i32, i8, i64, i8, i64,
-        ctypes.c_int64, i8, i64, i64, i32,
+    lib.imsame_render_report.restype = ctypes.c_int64
+    lib.imsame_render_report.argtypes = [
+        i8, i8, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32, i64,
+        ctypes.c_int64, i64, i8, i32, ctypes.c_int32,
     ]
     return lib
 
@@ -204,33 +204,55 @@ def kmer_stream_arrays(codes, qlo, n_kmers, k: int, bucket_start):
     return kp, lo, cnt, Ccum
 
 
-def render_blocks(
-    chains, n_steps, xlen, ylen, xchars, xoff, ychars, yoff, out_off,
-    total_out,
+# Bytes a record's header may take: "(q, db) : id% cov% ylen\n $$$$$$$ \n"
+# with two int64 and one int32 in decimal.
+RECORD_HEADER_CAP = 80
+
+
+def render_report(
+    xcodes, ycodes, qread, dbread, xoff, yoff, xlen, ylen, length,
+    identities, rec_ylen, n_steps, chains, chain_off,
 ):
-    """Batched record-block rendering (backtrack + 60-col emission +
-    identity count).  Returns (out_bytes, out_len, identities) or None."""
+    """The whole report of P accepted pairs in one native pass
+    (host.c imsame_render_report): record p's header from (qread,
+    dbread, identities, length, rec_ylen)[p], then its blocks, rebuilt
+    from chains[chain_off[p]:chain_off[p + 1]] (n_steps[p] + 1 entries
+    used) over the 2-bit codes xcodes[xoff[p]:][:xlen[p]] (db) and
+    ycodes[yoff[p]:][:ylen[p]] (query).  Threads: one below 4,096
+    records, above that one per 2,048 records, up to the cores.  Returns
+    (report, emitted): the report as a uint8 array and the identity
+    count each record's render emitted; None without the library or for
+    records the renderer refuses (a zero length or query length, a
+    chain shorter than its steps)."""
     lib = load()
     if lib is None:
         return None
-    P = len(n_steps)
-    out = np.empty(total_out, np.uint8)
-    out_len = np.empty(P, np.int64)
-    identities = np.empty(P, np.int32)
-    rc = lib.imsame_render_blocks(
-        np.ascontiguousarray(chains, np.int32), chains.shape[1],
-        np.ascontiguousarray(n_steps, np.int32),
-        np.ascontiguousarray(xlen, np.int32),
-        np.ascontiguousarray(ylen, np.int32),
-        np.ascontiguousarray(xchars, np.uint8),
-        np.ascontiguousarray(xoff, np.int64),
-        np.ascontiguousarray(ychars, np.uint8),
-        np.ascontiguousarray(yoff, np.int64),
-        P, out, np.ascontiguousarray(out_off, np.int64), out_len, identities,
+    P = len(qread)
+    if len(chain_off) != P + 1 or (P and (
+            chain_off[-1] > len(chains)
+            or (np.asarray(xoff) + xlen).max() > len(xcodes)
+            or (np.asarray(yoff) + ylen).max() > len(ycodes))):
+        raise ValueError("render_report: records past their arrays")
+    span = 2 * np.maximum(xlen, ylen).astype(np.int64)
+    out_off = np.zeros(P + 1, np.int64)
+    np.cumsum(RECORD_HEADER_CAP + 3 * span + 3 * (span // 60 + 2) + 8,
+              out=out_off[1:])
+    out = np.empty(max(int(out_off[-1]), 1), np.uint8)
+    emitted = np.empty(P, np.int32)
+    n = lib.imsame_render_report(
+        np.ascontiguousarray(xcodes, np.uint8),
+        np.ascontiguousarray(ycodes, np.uint8),
+        *(np.ascontiguousarray(a, np.int64) for a in (qread, dbread, xoff,
+                                                      yoff)),
+        *(np.ascontiguousarray(a, np.int32) for a in (
+            xlen, ylen, length, identities, rec_ylen, n_steps, chains)),
+        np.ascontiguousarray(chain_off, np.int64),
+        P, out_off, out, emitted,
+        os.cpu_count() or 1,
     )
-    if rc != 0:
+    if n < 0:
         return None
-    return out, out_len, identities
+    return out[:n], emitted
 
 
 def build_flat_arrays(

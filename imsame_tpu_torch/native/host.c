@@ -237,14 +237,16 @@ EXPORT int64_t imsame_index_build(
 }
 
 /* ------------------------------------------------------------------ *
- * Report-block renderer: per accepted pair, reconstruct the two
- * right-aligned alignment buffers from the device traceback chain and
- * emit the 60-column triplet blocks (db line, query line, '*' match
- * line), counting identities during emission -- the reference counts
- * them at render time too (src/alignmentFunctions.c:230-271; emission
- * order src/alignmentFunctions.c:493-560).  The Python emission loops
- * cost ~0.36 ms/pair; at 10k accepted pairs that dominates the whole
- * render phase, so the inner loops live here.
+ * Report renderer: the whole -out report of a batch of accepted pairs in
+ * one pass.  Per pair, the record header (src/alignmentFunctions.c:
+ * 167-168), then the two right-aligned alignment buffers rebuilt from
+ * the device traceback chain and emitted as 60-column triplet blocks (db
+ * line, query line, '*' match line), counting identities during
+ * emission -- the reference counts them at render time too
+ * (src/alignmentFunctions.c:230-271; emission order
+ * src/alignmentFunctions.c:493-560).  Bases are read as 2-bit codes and
+ * mapped to ASCII where they are read, so no sample is copied to
+ * characters.
  *
  * Chain encoding (ops/traceback.py): chain[0] = best cell as
  * px*4096+py; subsequent entries are visited cells, bit 26 flagging a
@@ -253,13 +255,17 @@ EXPORT int64_t imsame_index_build(
 
 #define ALIGN_COLS 60
 
+static const uint8_t BASE_CHAR[4] = {'A', 'C', 'G', 'T'};
+
 static int64_t render_one(
     const int32_t *chain, int32_t n_steps, int32_t xl, int32_t yl,
-    const uint8_t *xc, const uint8_t *yc,
+    const uint8_t *xc, const uint8_t *yc, /* 2-bit codes of the two reads */
     uint8_t *rec_x, uint8_t *rec_y, /* scratch, >= 4*max(xl,yl)+2 */
     uint8_t *out, int32_t *identities_out) {
     const int32_t PACKB = 4096;
     const int32_t RUN_FLAG = 1 << 26;
+#define XC(k) BASE_CHAR[xc[k] & 3]
+#define YC(k) BASE_CHAR[yc[k] & 3]
     int32_t maximum_len = 2 * (xl > yl ? xl : yl);
     int32_t buf_len = 2 * maximum_len + 2;
     memset(rec_x, ' ', (size_t)buf_len);
@@ -278,26 +284,28 @@ static int64_t render_one(
         curr_y = e % PACKB;
         if (is_run) {
             for (int32_t k = 0; k < prev_x - curr_x; k++) {
-                rec_x[head_x--] = xc[prev_x - k];
-                rec_y[head_y--] = yc[prev_y - k];
+                rec_x[head_x--] = XC(prev_x - k);
+                rec_y[head_y--] = YC(prev_y - k);
             }
         } else if (curr_x == prev_x - 1 && curr_y == prev_y - 1) {
-            rec_x[head_x--] = xc[prev_x];
-            rec_y[head_y--] = yc[prev_y];
+            rec_x[head_x--] = XC(prev_x);
+            rec_y[head_y--] = YC(prev_y);
         } else if ((prev_x - curr_x) > (prev_y - curr_y)) {
             for (int32_t k = prev_x; k > curr_x; k--) {
                 rec_y[head_y--] = '-';
-                rec_x[head_x--] = xc[k];
+                rec_x[head_x--] = XC(k);
             }
         } else {
             for (int32_t k = prev_y; k > curr_y; k--) {
                 rec_x[head_x--] = '-';
-                rec_y[head_y--] = yc[k];
+                rec_y[head_y--] = YC(k);
             }
         }
         prev_x = curr_x;
         prev_y = curr_y;
     }
+#undef XC
+#undef YC
     int32_t hx = 0, hy = 0; /* leading gap runs; shorter side space-padded */
     for (int32_t k = curr_x - 1; k >= 0; k--) { rec_x[head_x--] = '-'; hx++; }
     for (int32_t k = curr_y - 1; k >= 0; k--) { rec_y[head_y--] = '-'; hy++; }
@@ -339,30 +347,157 @@ static int64_t render_one(
     return o;
 }
 
-EXPORT int32_t imsame_render_blocks(
-    const int32_t *chains, int64_t chain_stride, const int32_t *n_steps,
+/* Decimal digits of v at o; returns the count (Python's str(int)). */
+static int put_int(uint8_t *o, int64_t v) {
+    uint8_t tmp[24];
+    int n = 0, s = 0;
+    uint64_t u = (uint64_t)v;
+    if (v < 0) {
+        o[s++] = '-';
+        u = 0 - u;
+    }
+    do {
+        tmp[n++] = (uint8_t)('0' + u % 10);
+        u /= 10;
+    } while (u);
+    for (int k = 0; k < n; k++) o[s + k] = tmp[n - 1 - k];
+    return s + n;
+}
+
+/* "(<qread>, <dbread>) : <id>% <cov>% <ylen>\n $$$$$$$ \n" with the
+ * percentages MIN(100, .) of uint64 floor divisions (io/report.py
+ * format_record).  At most 80 bytes. */
+static int64_t put_header(uint8_t *o, int64_t qread, int64_t dbread,
+                          int32_t identities, int32_t length, int32_t ylen) {
+    uint64_t id_pct = (uint64_t)100 * (uint64_t)identities / (uint64_t)length;
+    uint64_t cov_pct = (uint64_t)100 * (uint64_t)length / (uint64_t)ylen;
+    int64_t n = 0;
+    o[n++] = '(';
+    n += put_int(o + n, qread);
+    o[n++] = ',';
+    o[n++] = ' ';
+    n += put_int(o + n, dbread);
+    memcpy(o + n, ") : ", 4);
+    n += 4;
+    n += put_int(o + n, (int64_t)(id_pct < 100 ? id_pct : 100));
+    o[n++] = '%';
+    o[n++] = ' ';
+    n += put_int(o + n, (int64_t)(cov_pct < 100 ? cov_pct : 100));
+    o[n++] = '%';
+    o[n++] = ' ';
+    n += put_int(o + n, ylen);
+    memcpy(o + n, "\n $$$$$$$ \n", 11);
+    return n + 11;
+}
+
+typedef struct {
+    const uint8_t *xcodes, *ycodes;
+    const int64_t *qread, *dbread, *xoff, *yoff;
+    const int32_t *xlen, *ylen, *length, *identities, *rec_ylen, *n_steps;
+    const int32_t *chains;
+    const int64_t *chain_off, *out_off;
+    int64_t r0, r1;       /* record range [r0, r1) */
+    int32_t maxl;         /* longest read of the batch */
+    uint8_t *out;
+    int32_t *emitted;
+    int64_t written;      /* bytes from out + out_off[r0] */
+    int32_t status;       /* 0, or -1: no scratch, -2: a record refused */
+} RrTask;
+
+/* One thread's records, back to back from the start of its range's
+ * capped slots.  A record the renderer cannot take (a zero length, a
+ * chain shorter than its steps, an output past its cap) stops the range
+ * with status -2, so the caller falls back to the Python path, which
+ * defines the answer for it. */
+static void *rr_pass(void *arg) {
+    RrTask *t = (RrTask *)arg;
+    t->written = 0;
+    t->status = 0;
+    uint8_t *rec_x = (uint8_t *)malloc((size_t)(4 * t->maxl + 2) * 2);
+    if (!rec_x) {
+        t->status = -1;
+        return NULL;
+    }
+    uint8_t *rec_y = rec_x + (4 * t->maxl + 2);
+    uint8_t *o = t->out + t->out_off[t->r0];
+    for (int64_t p = t->r0; p < t->r1; p++) {
+        int32_t ns = t->n_steps[p];
+        if (t->length[p] <= 0 || t->rec_ylen[p] <= 0 || t->identities[p] < 0
+            || ns < 0 || ns + 1 > t->chain_off[p + 1] - t->chain_off[p]) {
+            t->status = -2;
+            break;
+        }
+        int64_t n = put_header(o, t->qread[p], t->dbread[p], t->identities[p],
+                               t->length[p], t->rec_ylen[p]);
+        n += render_one(t->chains + t->chain_off[p], ns, t->xlen[p],
+                        t->ylen[p], t->xcodes + t->xoff[p],
+                        t->ycodes + t->yoff[p], rec_x, rec_y, o + n,
+                        &t->emitted[p]);
+        o += n;
+        t->written += n;
+        if (o - t->out > t->out_off[p + 1]) {
+            t->status = -2; /* past the record's cap: the caps are wrong */
+            break;
+        }
+    }
+    free(rec_x);
+    return NULL;
+}
+
+/* The report of P records into out: each record's slot [out_off[p],
+ * out_off[p+1]) (out_off[0] = 0) holds its header's 80 bytes and its
+ * blocks' bound, 3 * span + 3 * (span / 60 + 2) + 8 with span =
+ * 2 * max(xlen, ylen) (native/__init__.py render_report).  Up to n_threads threads render contiguous
+ * record ranges, balanced by slot bytes, each from the start of its
+ * range's slots; the ranges are then moved down, in order, so that the
+ * report lies at out[0, returned length).  One thread below 4,096
+ * records.  emitted[p] is the identity count the render of record p
+ * emitted.  Returns the report's length, -1 when scratch memory runs
+ * out or -2 for a record the renderer refuses (rr_pass). */
+EXPORT int64_t imsame_render_report(
+    const uint8_t *xcodes, const uint8_t *ycodes,
+    const int64_t *qread, const int64_t *dbread,
+    const int64_t *xoff, const int64_t *yoff,
     const int32_t *xlen, const int32_t *ylen,
-    const uint8_t *xchars, const int64_t *xoff,
-    const uint8_t *ychars, const int64_t *yoff,
-    int64_t P,
-    uint8_t *out, const int64_t *out_off, int64_t *out_len,
-    int32_t *identities) {
+    const int32_t *length, const int32_t *identities,
+    const int32_t *rec_ylen, const int32_t *n_steps,
+    const int32_t *chains, const int64_t *chain_off,
+    int64_t P, const int64_t *out_off, uint8_t *out, int32_t *emitted,
+    int32_t n_threads) {
+    if (P <= 0) return 0;
     int32_t maxl = 0;
     for (int64_t p = 0; p < P; p++) {
         if (xlen[p] > maxl) maxl = xlen[p];
         if (ylen[p] > maxl) maxl = ylen[p];
     }
-    uint8_t *rec_x = (uint8_t *)malloc((size_t)(4 * maxl + 2) * 2);
-    if (!rec_x) return -1;
-    uint8_t *rec_y = rec_x + (4 * maxl + 2);
-    for (int64_t p = 0; p < P; p++) {
-        out_len[p] = render_one(
-            chains + p * chain_stride, n_steps[p], xlen[p], ylen[p],
-            xchars + xoff[p], ychars + yoff[p],
-            rec_x, rec_y, out + out_off[p], &identities[p]);
+    int T = n_threads < 1 ? 1 : (n_threads > 32 ? 32 : n_threads);
+    int64_t most = P < 4096 ? 1 : P / 2048; /* thread setup dwarfs less */
+    if (T > most) T = (int)most;
+    RrTask tasks[32];
+    int64_t r = 0;
+    for (int j = 0; j < T; j++) {
+        RrTask *t = &tasks[j];
+        t->xcodes = xcodes; t->ycodes = ycodes;
+        t->qread = qread; t->dbread = dbread; t->xoff = xoff; t->yoff = yoff;
+        t->xlen = xlen; t->ylen = ylen; t->length = length;
+        t->identities = identities; t->rec_ylen = rec_ylen;
+        t->n_steps = n_steps; t->chains = chains; t->chain_off = chain_off;
+        t->out_off = out_off; t->maxl = maxl; t->out = out;
+        t->emitted = emitted;
+        t->r0 = r;
+        int64_t goal = out_off[P] * (j + 1) / T;
+        while (r < P && out_off[r] < goal) r++;
+        t->r1 = (j == T - 1) ? P : r;
     }
-    free(rec_x);
-    return 0;
+    run_tasks(tasks, T, rr_pass);
+    int64_t n = 0;
+    for (int j = 0; j < T; j++) {
+        if (tasks[j].status != 0) return tasks[j].status;
+        uint8_t *src = out + tasks[j].out_off[tasks[j].r0];
+        if (src != out + n) memmove(out + n, src, (size_t)tasks[j].written);
+        n += tasks[j].written;
+    }
+    return n;
 }
 
 /* ------------------------------------------------------------------ *

@@ -67,6 +67,7 @@ its index row (_gate_chunks_routed).
 from __future__ import annotations
 
 import dataclasses
+from operator import attrgetter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -264,6 +265,13 @@ def _unpack_gate_bits(words: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray
 def _runs_kernels(devices) -> bool:
     """Whether an engine on these devices launches the CUDA kernels."""
     return any(torch.device(d).type == "cuda" for d in devices)
+
+
+def _read_bounds(s: SeqInfo, reads: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(start, one-past-end) of each of ``reads`` in ``s.codes``."""
+    nxt = np.minimum(reads + 1, s.n_seqs - 1)
+    return s.start[reads], np.where(reads + 1 < s.n_seqs, s.start[nxt],
+                                    s.total_len)
 
 
 def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
@@ -1353,34 +1361,39 @@ class TorchEngine:
         self, q: SeqInfo, result: PipelineResult, dev=None
     ) -> bytes:
         """Byte-identical -out file content (records in read order, matching
-        the reference at n_threads=1).  The block emission runs in the
-        native host library when available (batched backtrack + 60-col
-        render, native/host.c imsame_render_blocks); the Python path below
-        is the bit-identical fallback.  ``dev``: see _materialize_chains
-        (default: the last compare's tables).  Afterwards
-        ``result.timings`` holds the engine's phase sums up to the
-        render's end, its ``render_report`` and ``render.*`` phases
-        included."""
+        the reference at n_threads=1).  With the native host library the
+        whole report is one pass over the records (backtrack, header and
+        60-col blocks, native/host.c imsame_render_report); the Python
+        path below is the bit-identical fallback.  ``dev``: see
+        _materialize_chains (default: the last compare's tables).
+        Afterwards ``result.timings`` holds the engine's phase sums up to
+        the render's end, its ``render_report`` and ``render.*`` phases
+        included; the counter ``render_native_records`` counts the records
+        the native pass wrote."""
         timer = self.timer
         timer.trace()
         with timer.phase("render_report"):
             self._materialize_chains(result.records, dev=dev)
             recs = result.records
-            blocks = None
+            rendered = None
             if recs and native.lib is not None:
                 with timer.phase("render.blocks"):
-                    blocks = self._render_blocks_native(q, recs)
+                    rendered = self._render_native(q, recs)
             with timer.phase("render.format"):
-                if blocks is not None:
-                    out = bytearray()
-                    for a, block in zip(recs, blocks):
-                        out += format_record(
-                            a.qread, a.dbread, a.identities, a.length,
-                            a.ylen, block,
-                        )
-                    out = bytes(out)
+                if rendered is not None:
+                    report, emitted, identities = rendered
+                    bad = np.flatnonzero(emitted != identities)
+                    if len(bad):  # traceback/render agreement
+                        p = int(bad[0])
+                        raise AssertionError(
+                            f"record {p} ({recs[p].qread}, {recs[p].dbread})"
+                            f": the render emits {emitted[p]} identities, "
+                            f"the NW stats {identities[p]}")
+                    out = report.tobytes()
                 else:
                     out = self._render_python(q, recs)
+        timer.count("render_native_records",
+                    len(recs) if rendered is not None else 0)
         result.timings = dict(timer.items())
         return out
 
@@ -1408,40 +1421,32 @@ class TorchEngine:
             )
         return bytes(out)
 
-    def _render_blocks_native(self, q: SeqInfo, recs) -> Optional[list]:
-        """Batched native block render; returns per-record block bytes.
-        Cross-checks the emission-time identity count against the NW
-        stats, like the Python path's assert."""
+    def _render_native(self, q: SeqInfo, recs):
+        """The records' report in one native pass: (report as uint8,
+        identities the render emitted, the NW stats' identities), or None
+        where the native renderer refuses the records."""
         db = self.db
         P = len(recs)
-        qr = np.fromiter((a.qread for a in recs), np.int64, P)
-        dr = np.fromiter((a.dbread for a in recs), np.int64, P)
-        db_ends = np.append(db.start[1:], db.total_len)
-        q_ends = np.append(q.start[1:], q.total_len)
-        xoff = db.start[dr]
-        yoff = q.start[qr]
-        xlen = (db_ends[dr] - xoff).astype(np.int32)
-        ylen = (q_ends[qr] - yoff).astype(np.int32)
-        width = max(len(a.chain) for a in recs)
-        chains = np.zeros((P, width), np.int32)
-        for p, a in enumerate(recs):
-            chains[p, : len(a.chain)] = a.chain
-        n_steps = np.fromiter((a.n_steps for a in recs), np.int32, P)
-        span = 2 * np.maximum(xlen, ylen).astype(np.int64)
-        caps = 3 * span + 3 * (span // 60 + 2) + 8
-        out_off = np.zeros(P + 1, np.int64)
-        np.cumsum(caps, out=out_off[1:])
-        res = native.render_blocks(
-            chains, n_steps, xlen, ylen,
-            CODE_TO_CHAR[db.codes], xoff, CODE_TO_CHAR[q.codes], yoff,
-            out_off[:-1], int(out_off[-1]),
+
+        def field(name, dtype):
+            return np.fromiter(map(attrgetter(name), recs), dtype, P)
+
+        qr = field("qread", np.int64)
+        dr = field("dbread", np.int64)
+        identities = field("identities", np.int32)
+        chains = list(map(attrgetter("chain"), recs))
+        chain_off = np.zeros(P + 1, np.int64)
+        np.cumsum(np.fromiter(map(len, chains), np.int64, P),
+                  out=chain_off[1:])
+        xoff, xend = _read_bounds(db, dr)
+        yoff, yend = _read_bounds(q, qr)
+        res = native.render_report(
+            db.codes, q.codes, qr, dr, xoff, yoff,
+            (xend - xoff).astype(np.int32), (yend - yoff).astype(np.int32),
+            field("length", np.int32), identities, field("ylen", np.int32),
+            field("n_steps", np.int32), np.concatenate(chains), chain_off,
         )
         if res is None:
             return None
-        out, out_len, identities = res
-        for p, a in enumerate(recs):
-            assert int(identities[p]) == a.identities
-        return [
-            out[out_off[p] : out_off[p] + out_len[p]].tobytes()
-            for p in range(P)
-        ]
+        report, emitted = res
+        return report, emitted, identities
