@@ -64,9 +64,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="gap extend penalty (negated, like the reference)")
     p.add_argument("--verbose", action="store_true",
                    help="accepted for compatibility; ignored (as upstream)")
-    p.add_argument("--tpu-first-window", type=int, default=8,
+    dflt = Config()
+    p.add_argument("--tpu-first-window", type=int, default=dflt.first_window,
                    help="candidates gated per read in stage 1")
-    p.add_argument("--tpu-gate-chunks", type=str, default="524288,65536",
+    p.add_argument("--tpu-gate-chunks", type=str,
+                   default=",".join(map(str, dflt.gate_chunks)),
                    help="flat-gate chunk sizes (comma-separated)")
     return p
 

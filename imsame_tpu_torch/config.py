@@ -48,14 +48,9 @@ class Config:
     # at 64.  Accepts are F-invariant by construction.
     first_window_auto: bool = True
     # Flat-gate chunk sizes (candidates per device call), descending
-    # choice by pipeline._gate_chunks_dispatch.  The largest bounds the
-    # gate's [chunk, window] device temporaries.
+    # choice by pipeline.TorchEngine._gate_spans; past SHORT_WINDOW capped
+    # by pipeline.GATE_MAX_ELEMENTS (the CPU's plain gate's temporaries).
     gate_chunks: tuple = (1 << 21, 1 << 19, 1 << 16)
-    # First-tier extension window (bases) for large gate stages: random
-    # candidates' walks die within a few mismatches, provably inside this
-    # window (the gate flags exactness); only escapees re-run at the full
-    # read window.  0 disables the tier.
-    gate_window_small: int = 64
     # NW batch-shape ladders (descending; see pipeline._nw_chunks).  The
     # stats-only accept path has no bp tensor, so its ladder tops out
     # high; the render path materializes 4*(2L-1)*L bytes of

@@ -22,7 +22,7 @@ the tensor.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,16 +39,22 @@ def visible_devices(device) -> List[torch.device]:
     return [dev]
 
 
+def _copy(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The upload of a Mesh built outside an engine: a plain copy,
+    counted nowhere."""
+    return torch.tensor(x, device=dev)
+
+
 class Mesh:
     """A [n_data, n_dict] grid of torch devices (see the module
     docstring).  ``shape`` is {"data": n_data, "dict": n_dict}, ``size``
     the number of positions, ``devices`` the positions' devices in flat
-    order and ``lead`` the first, where merged results land.  ``timer``,
-    where set (the engine's PhaseTimer), counts the bytes of the host
-    arrays sent in ``h2d_bytes``."""
+    order and ``lead`` the first, where merged results land.  ``upload(x,
+    device)`` sends a host array: an engine's mesh takes the engine's
+    counted upload (TorchEngine._put)."""
 
     def __init__(self, devices: Sequence[torch.device], n_data: int,
-                 n_dict: int):
+                 n_dict: int, upload: Optional[Callable] = None):
         if len(devices) != n_data * n_dict:
             raise ValueError(f"{n_data}x{n_dict} mesh needs "
                              f"{n_data * n_dict} devices, got {len(devices)}")
@@ -56,29 +62,24 @@ class Mesh:
         self.shape = {"data": n_data, "dict": n_dict}
         self.size = n_data * n_dict
         self.lead = self.devices[0]
-        self.timer = None
+        self.upload = upload or _copy
 
     def grid(self, p: int):
         """(d, k): the data and dict coordinates of position p."""
         return divmod(p, self.shape["dict"])
 
-    def _upload(self, part, dev: torch.device) -> torch.Tensor:
-        if isinstance(part, torch.Tensor):
-            return part.to(dev)
-        part = np.ascontiguousarray(part)
-        if self.timer is not None:
-            self.timer.count("h2d_bytes", part.nbytes)
-        return torch.as_tensor(part, device=dev)
-
     def _per_position(self, key, part) -> List[torch.Tensor]:
-        """part(p) uploaded to each position's device, once per distinct
-        (device, key(p))."""
+        """part(p) on each position's device, sent once per distinct
+        (device, key(p)): a host array by ``upload``, a tensor by
+        ``.to``."""
         done = {}
         out = []
         for p, dev in enumerate(self.devices):
             slot = (dev, key(p))
             if slot not in done:
-                done[slot] = self._upload(part(p), dev)
+                x = part(p)
+                done[slot] = (x.to(dev) if isinstance(x, torch.Tensor)
+                              else self.upload(x, dev))
             out.append(done[slot])
         return out
 
@@ -112,11 +113,12 @@ class Mesh:
 
 
 def make_mesh(n_data: Optional[int] = None, n_dict: int = 1,
-              devices=None) -> Mesh:
+              devices=None, upload: Optional[Callable] = None) -> Mesh:
     """The first n_data * n_dict of ``devices`` (default: every visible
     card) as a [n_data, n_dict] mesh; n_data defaults to as many as the
-    devices fill.  ``devices`` may repeat a device.  Raises ValueError
-    when there are too few devices or a card index is not visible."""
+    devices fill.  ``devices`` may repeat a device; ``upload``: see
+    Mesh.  Raises ValueError when there are too few devices or a card
+    index is not visible."""
     devices = ([torch.device(d) for d in devices] if devices is not None
                else visible_devices("cuda"))
     if n_data is None:
@@ -133,4 +135,4 @@ def make_mesh(n_data: Optional[int] = None, n_dict: int = 1,
             d = devices[i] = torch.device("cuda", torch.cuda.current_device())
         if d.index >= n_cards:
             raise ValueError(f"{d} is not visible ({n_cards} CUDA devices)")
-    return Mesh(devices, n_data, n_dict)
+    return Mesh(devices, n_data, n_dict, upload)

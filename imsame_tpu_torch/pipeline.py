@@ -61,7 +61,10 @@ NW batches split over "data" (NW batches over both axes): each stage
 calls the sharded step of parallel/sharded.py in place of the
 single-device op, with the same bits by construction.  A packed-format
 gate with n_dict > 1 routes each candidate to the position that holds
-its index row (_gate_chunks_routed).
+its index row (_gate_chunks_routed).  The stages do not see the mesh:
+they place data and launch steps through the engine's placement methods
+(_put, the one upload of a host array, then _rep, _put_rows, _put_cols,
+_nw_stats, _nw_render and _gate_launch), which alone ask for it.
 """
 
 from __future__ import annotations
@@ -93,12 +96,15 @@ from .parallel.mesh import make_mesh, visible_devices
 from .utils.timing import PhaseTimer
 
 # Up to this extension window, gate stages above SMALL_TIER_MIN_CANDIDATES
-# candidates run Config.gate_window_small first (below it the escalation's
-# extra device round trip cannot repay the narrower window) and stage 1
-# gates at the full window.  Past it every stage gates at the small window
-# first and re-gates only the inexact escapees at the full window, as the
-# JAX engine does for window > 256.
+# candidates run GATE_WINDOW_SMALL first (below it the escalation's extra
+# device round trip cannot repay the narrower window) and stage 1 gates at
+# the full window.  Past it every stage gates at the small window first
+# and re-gates only the inexact escapees at the full window, as the JAX
+# engine does for window > 256.
 SHORT_WINDOW = 256
+# The small window (bases): random candidates' walks die within a few
+# mismatches, provably inside it (the gate flags exactness).
+GATE_WINDOW_SMALL = 64
 SMALL_TIER_MIN_CANDIDATES = 2_000_000
 # Candidates x window of one gate chunk past SHORT_WINDOW: bounds the
 # plain gate's [chunk, window] int32 temporaries (the CPU path's; the
@@ -247,8 +253,9 @@ class _KeySet:
 
 
 def _rq_words(rids: np.ndarray, qoffs: np.ndarray) -> np.ndarray:
-    """The two-word candidate format's second word, (read id << 12) |
-    qoff, bit-cast to int32."""
+    """(read id << 12) | offset, bit-cast to int32: the two-word
+    candidate format's second word (query read, qoff) and the packed
+    index word (db read, doff)."""
     return ((rids.astype(np.uint32) << np.uint32(12))
             | qoffs.astype(np.uint32)).view(np.int32)
 
@@ -272,12 +279,6 @@ def _read_bounds(s: SeqInfo, reads: np.ndarray) -> Tuple[np.ndarray, np.ndarray]
     nxt = np.minimum(reads + 1, s.n_seqs - 1)
     return s.start[reads], np.where(reads + 1 < s.n_seqs, s.start[nxt],
                                     s.total_len)
-
-
-def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
-    """x with zero rows appended up to a multiple of n (the index payload
-    split over n dict shards; the padding rows are never hit)."""
-    return np.pad(x, (0, -len(x) % n)) if len(x) % n else x
 
 
 class TorchEngine:
@@ -315,10 +316,15 @@ class TorchEngine:
                     f"length buckets {missing} have no CUDA kernel: an "
                     f"engine on a card takes buckets of nw_cuda.LENGTHS "
                     f"{nw_cuda.LENGTHS}")
-            self._mesh = self._make_mesh(mesh_devices)
-            if self._mesh is not None:
-                self.device = self._mesh.lead
-                self._mesh.timer = self.timer
+            mesh = self._mesh = self._make_mesh(mesh_devices)
+            if mesh is not None:
+                self.device = mesh.lead
+            # The positions a pair batch splits over, the data shards of
+            # a gate chunk and the dict shards of the index payload: 1
+            # each on one device.
+            self._n_pos, self._n_data, self._n_dict = (
+                (mesh.size, mesh.shape["data"], mesh.shape["dict"])
+                if mesh else (1, 1, 1))
             self.db_read_lens = db.read_lens()
             max_dlen = int(self.db_read_lens.max()) if db.n_seqs else 0
             if db.n_seqs:
@@ -337,46 +343,29 @@ class TorchEngine:
                 # db_start) triple, as in the JAX engine.
                 self._packed_idx = (db.n_seqs < PACKED_MAX_READS
                                     and max_dlen < 4096)
-                # On a mesh the payload splits by row range over "dict"
-                # (padded to a multiple of n_dict rows); db_start
-                # replicates.
-                n_dict = self._mesh.shape["dict"] if self._mesh else 1
+                # On a mesh the payload splits by row range over "dict",
+                # _shard_rows rows a shard; db_start replicates.
+                self._shard_rows = -(-self.index.n_entries // self._n_dict)
                 if not self._packed_idx:
-                    pos = _pad_rows(np.asarray(self.index.pos, np.int32),
-                                    n_dict)
-                    sid = _pad_rows(np.asarray(self.index.sid, np.int32),
-                                    n_dict)
-                    self._shard_rows = len(pos) // n_dict
-                    db_start = self._put(np.asarray(db.start, np.int32))
-                    if self._mesh is None:
-                        self._d_idx_tab = (self._put(pos), self._put(sid),
-                                           db_start)
-                    else:
-                        self._d_idx_tab = list(zip(
-                            self._mesh.put_rows(pos),
-                            self._mesh.put_rows(sid),
-                            self._mesh.put(db_start),
-                        ))
+                    self._d_idx_tab = self._put_rows(
+                        np.asarray(self.index.pos, np.int32),
+                        np.asarray(self.index.sid, np.int32),
+                        rep=self._put(np.asarray(db.start, np.int32)))
                 else:
                     if self.index.packed is not None:
                         words = self.index.packed.view(np.int32)
                     else:
                         sid = np.asarray(self.index.sid, np.int64)
-                        doff = (np.asarray(self.index.pos, np.int64)
-                                - db.start[sid])
-                        words = ((sid.astype(np.uint32) << np.uint32(12))
-                                 | doff.astype(np.uint32)).view(np.int32)
-                    words = _pad_rows(words, n_dict)
-                    self._shard_rows = len(words) // n_dict
-                    self._d_idx_tab = (self._put(words) if self._mesh is None
-                                       else self._mesh.put_rows(words))
+                        pos = np.asarray(self.index.pos, np.int64)
+                        words = _rq_words(sid, pos - db.start[sid])
+                    self._d_idx_tab = self._put_rows(words)
                 # Device enumeration (Config.gate_enum) needs the packed
                 # index words and the bucket prefix table on the device
                 # (4^12 + 1 words); a mesh takes the host gate, as in the
                 # JAX engine.
                 self._use_enum = (bool(self.cfg.gate_enum)
                                   and self._packed_idx
-                                  and self._mesh is None)
+                                  and self._n_pos == 1)
                 self._d_bs = (
                     self._put(np.asarray(self.index.bucket_start, np.int32))
                     if self._use_enum else None
@@ -419,7 +408,7 @@ class TorchEngine:
             d = len(devices)
             while d > 1 and not divides(d):
                 d //= 2
-            return make_mesh(d, 1, devices) if d > 1 else None
+            return make_mesh(d, 1, devices, self._put) if d > 1 else None
         n_data, n_dict = ms
         if n_data * n_dict <= 1:
             return None
@@ -428,18 +417,91 @@ class TorchEngine:
                 "gate_chunks / NW batch shapes must divide evenly over the "
                 "mesh (n_data*n_dict*32 and n_data*n_dict*8 respectively; "
                 "the dict-routed gate slices chunks over both axes)")
-        return make_mesh(n_data, n_dict, devices)
+        return make_mesh(n_data, n_dict, devices, self._put)
 
-    def _put(self, x: np.ndarray) -> torch.Tensor:
-        """Upload to the engine's (lead) device, counted in h2d_bytes."""
+    # ------------------------------------------------------------------
+    # Placement: these methods alone know whether a mesh exists.  Each
+    # returns what the device step takes: a tensor on one device, on a
+    # mesh one a position.
+    def _put(self, x: np.ndarray, device=None) -> torch.Tensor:
+        """Upload a host array to ``device`` (default: the engine's lead
+        device), counted in h2d_bytes.  The mesh's uploads come here
+        too."""
         x = np.ascontiguousarray(x)
         self.timer.count("h2d_bytes", x.nbytes)
-        return torch.as_tensor(x, device=self.device)
+        return torch.as_tensor(
+            x, device=self.device if device is None else device)
 
     def _rep(self, t: torch.Tensor):
-        """A lead-device table as the engine's steps take it: the tensor
-        itself, or on a mesh one per position (mesh.put)."""
+        """A lead-device table replicated over the positions
+        (mesh.put)."""
         return t if self._mesh is None else self._mesh.put(t)
+
+    def _put_rows(self, *xs, rep=None):
+        """The index payload: host arrays ``xs`` split by row range over
+        "dict", _shard_rows rows a shard (mesh.put_rows, after zero rows
+        that no candidate hits), then the lead-device tensor ``rep``
+        replicated; a tuple where there are several (on a mesh, one tuple
+        a position)."""
+        if self._mesh is None:
+            parts = [self._put(x) for x in xs]
+        else:
+            n = self._shard_rows * self._n_dict
+            parts = [self._mesh.put_rows(np.pad(x, (0, n - len(x))))
+                     for x in xs]
+        if rep is not None:
+            parts.append(self._rep(rep))
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(parts) if self._mesh is None else list(zip(*parts))
+
+    def _put_cols(self, x: np.ndarray, flat: bool = False):
+        """A candidate chunk or pair batch split by column over "data", or
+        with ``flat`` over the flattened ("data", "dict") axis
+        (mesh.put_cols)."""
+        if self._mesh is None:
+            return self._put(x)
+        return self._mesh.put_cols(x, flat)
+
+    def _nw_stats(self, dev, rs: np.ndarray, L: int) -> torch.Tensor:
+        """Queue the stats-only aligner over the [2, B] pair batch ``rs``
+        at length bucket L: [3, B] (length, identities, ylen)."""
+        d_qp, d_dp, d_qlen, d_dlen = dev
+        args = (d_qp, d_dp, self._put_cols(rs, flat=True), d_qlen, d_dlen,
+                self.cfg.igap, self.cfg.egap)
+        if self._mesh is None:
+            return nw_stats_rows(*args, max_len=L)
+        return sharded.nw_stats_step(self._mesh, *args, max_len=L)
+
+    def _nw_render(self, dev, rpad: np.ndarray, spad: np.ndarray, L: int):
+        """Queue the backpointer kernel and the traceback over the pairs
+        (rpad, spad) at length bucket L: their ResolveNWResult."""
+        d_qp, d_dp, d_qlen, d_dlen = dev
+        gaps = (self.cfg.igap, self.cfg.egap)
+        if self._mesh is None:
+            return nw_traceback_rows(d_qp, d_dp, self._put(rpad),
+                                     self._put(spad), d_qlen, d_dlen, *gaps,
+                                     max_len=L)
+        rs = self._put_cols(np.stack([rpad, spad]), flat=True)
+        return sharded.nw_render_step(self._mesh, d_qp, d_dp, rs, d_qlen,
+                                      d_dlen, *gaps, max_len=L)
+
+    def _gate_launch(self, fmt: str, dev, d_cand, d_thr, window: int):
+        """Queue the gate over one uploaded chunk (``d_cand``: its arrays
+        in the order the step takes them) in candidate format ``fmt``
+        (_gate_format): flat_gate_seg, flat_gate_packed or flat_gate on
+        one device, the sharded step of the format on a mesh.  Returns
+        the [2, n/32] pass/exact words."""
+        if self._mesh is None:
+            step = {"seg": flat_gate_seg, "two_words": flat_gate_packed,
+                    "wide": flat_gate}[fmt]
+            return step(*dev, self._d_idx_tab, *d_cand, d_thr,
+                        window=window)
+        step = {"two_words": sharded.gate_step,
+                "wide": sharded.gate_step_wide,
+                "routed": sharded.gate_step_routed}[fmt]
+        return step(self._mesh, *dev, self._d_idx_tab, *d_cand, d_thr,
+                    window=window, shard_rows=self._shard_rows)
 
     def _rows_on_device(
         self, codes: np.ndarray, start: np.ndarray, lens: np.ndarray,
@@ -548,9 +610,8 @@ class TorchEngine:
         so one chunk's bp tensor (8*L^2 bytes/pair) fits the budget per
         device (the pair batch shards over every mesh position), in
         multiples of 8 pairs a position."""
-        n_dev = 1 if self._mesh is None else self._mesh.size
-        gran = 8 * n_dev
-        cap = int(self.cfg.nw_render_bp_budget * n_dev // (8 * L * L))
+        gran = 8 * self._n_pos
+        cap = int(self.cfg.nw_render_bp_budget * self._n_pos // (8 * L * L))
         cap = max(gran, (cap // gran) * gran)
         sizes = tuple(b for b in self.cfg.nw_render_batches if b <= cap)
         if not sizes:
@@ -572,16 +633,17 @@ class TorchEngine:
         bucket (see _render_sizes).  With ``count_cells`` the real pairs'
         cells add to nw_cells and every chunk's B * L * L, padding
         included, to the counter nw_launched_cells."""
-        P = len(r_ids)
         xls = self.db_read_lens[sids]
         yls = qlens[r_ids]
-        if P and (int(xls.max()) > MAX_READ_SIZE or int(yls.max()) > MAX_READ_SIZE):
+        maxl = np.maximum(xls, yls)
+        lb = np.asarray(self.cfg.length_buckets, np.int64)
+        b = np.searchsorted(lb, maxl)
+        # past MAX_READ_SIZE or the largest bucket
+        if len(b) and (maxl.max() > MAX_READ_SIZE or b.max() == len(lb)):
             raise ValueError("Read size reached for gapped alignment.")
+        buckets = lb[b]
         if count_cells:  # render runs aren't compare GCUPS
             self._nw_cells += int(np.sum(xls.astype(np.int64) * yls))
-        maxl = np.maximum(xls, yls)
-        buckets = np.array([self._nw_bucket(int(m)) for m in maxl], np.int64) \
-            if P else np.empty(0, np.int64)
         for L in np.unique(buckets):
             idxs = np.flatnonzero(buckets == L)
             lsizes = self._render_sizes(int(L)) if render else sizes
@@ -606,25 +668,13 @@ class TorchEngine:
         """Queue the stats-only aligner over pairs (no backpointer tensor)
         without waiting for it, so the caller can overlap further host and
         gate work before _nw_fetch_pairs reads the results back."""
-        d_qp, d_dp, d_qlen, d_dlen = dev
         pending = []
         # sub-span of resolve.nw: host chunking + queueing
         with self.timer.phase("nw.dispatch"):
             for chunk, rpad, spad, L in self._nw_chunks(
                 r_ids, sids, qlens, self.cfg.nw_stats_batches
             ):
-                rs = np.stack([rpad, spad])
-                if self._mesh is None:
-                    res = nw_stats_rows(
-                        d_qp, d_dp, self._put(rs), d_qlen, d_dlen,
-                        self.cfg.igap, self.cfg.egap, max_len=L,
-                    )
-                else:
-                    res = sharded.nw_stats_step(
-                        self._mesh, d_qp, d_dp,
-                        self._mesh.put_cols(rs, flat=True), d_qlen, d_dlen,
-                        self.cfg.igap, self.cfg.egap, max_len=L,
-                    )
+                res = self._nw_stats(dev, np.stack([rpad, spad]), L)
                 pending.append((chunk, res))
         return len(r_ids), pending
 
@@ -646,26 +696,18 @@ class TorchEngine:
         return out
 
     # ------------------------------------------------------------------
-    def _gate_chunks(self, rids, hits, qoffs, d_thr, dev, window):
-        """Gate candidates and wait for the bits: (passes, exact) bools."""
-        pending = self._gate_chunks_dispatch(
-            rids, hits, qoffs, d_thr, dev, window
-        )
-        return self._gate_chunks_fetch(pending, len(hits))
-
     def _gate_spans(self, N: int, window: int):
         """The gate's chunks over N candidates at an extension window:
         (first candidate, candidates, padded chunk size) each.  A chunk
         pads to 32 candidates a data shard: bits pack 32 per word per
         shard."""
-        gran = 32 * (self._mesh.shape["data"] if self._mesh else 1)
+        gran = 32 * self._n_data
         sizes = gate_chunk_sizes(self.cfg.gate_chunks, window, gran)
         pos = 0
         while pos < N:
             rem = N - pos
             # The smallest size whose repetition count doesn't exceed a
-            # single larger chunk's slots; the largest bounds the gate's
-            # [chunk, window] device temporaries.
+            # single larger chunk's slots.
             size = sizes[0]
             for z in sizes[1:]:
                 if -(-rem // z) * z <= size:
@@ -674,35 +716,61 @@ class TorchEngine:
             yield pos, take, -(-take // gran) * gran
             pos += take
 
-    def _gate_chunks_dispatch(self, rids, hits, qoffs, d_thr, dev, window):
+    def _gate_format(self, n_q: int) -> str:
+        """The candidate format of a compare of n_q query reads, by the
+        JAX engine's rules (every format gives the same bits): "wide",
+        three words (flat_gate), past 2^20 reads; "routed", two words
+        sent to the position that holds their index row, with n_dict > 1;
+        "seg", 4 B a candidate + 8 B a segment (flat_gate_seg), on one
+        device with a packed index of rows that fit 25 bits; else
+        "two_words", read id and qoff sharing one (flat_gate_packed)."""
+        if n_q >= PACKED_MAX_READS:
+            return "wide"
+        if self._n_dict > 1:
+            return "routed"
+        if (self._n_pos == 1 and self._packed_idx
+                and self.index.n_entries <= SEG_MAX_INDEX_ROWS):
+            return "seg"
+        return "two_words"
+
+    def _gate_encode(self, fmt, rids, hits, qoffs, n_pad: int) -> tuple:
+        """One chunk's candidate arrays in format ``fmt``, n_pad slots:
+        the seg words and their segments' row tables, the two words, or
+        the three words (hit, read id, qoff) and on a mesh a fourth row,
+        valid, with which the step masks the padding."""
+        if fmt == "seg":
+            # segments <= candidates, so n_pad slots never overflow
+            nat = native.seg_encode(rids, qoffs, hits, n_pad, n_pad)
+            if nat is None:
+                return encode_seg_chunk(rids, qoffs, hits, n_pad)
+            cand, rt, rb, nseg = nat
+            return cand, rt[:nseg], rb[:nseg]
+        take = len(hits)
+        if fmt == "two_words":
+            cand = np.zeros((2, n_pad), np.int32)
+            cand[1, :take] = _rq_words(rids, qoffs)
+        else:
+            cand = np.zeros((3 if self._n_pos == 1 else 4, n_pad), np.int32)
+            cand[1, :take] = rids
+            cand[2, :take] = qoffs
+            if len(cand) == 4:
+                cand[3, :take] = 1
+        cand[0, :take] = hits
+        return (cand,)
+
+    def _gate_chunks_dispatch(self, fmt, rids, hits, qoffs, d_thr, dev,
+                              window):
         """Queue the gate over candidate chunks and return the pending
         list WITHOUT waiting, so callers overlap the gate's device time
         with other work -- _gate_chunks_fetch collects the bits later.
 
-        ``rids`` are query read ids, ``hits`` index rows, ``qoffs`` k-mer
-        end offsets (int32 each).  The format follows the JAX engine's
-        rules: a query of >= 2^20 reads ships three words per candidate
-        (ops/candidates.py flat_gate); a smaller one is segment-encoded
-        (flat_gate_seg: 4 B/candidate + 8 B/segment) when the index is
-        the packed one and its rows fit the 25-bit hit field, else ships
-        two words per candidate, read id and qoff sharing one
-        (flat_gate_packed).  Every format gives the same bits.
-
-        On a mesh the packed chunks take the sharded two-word step
-        (parallel/sharded.py gate_step), or with n_dict > 1 the routed
-        planner (_gate_chunks_routed), and wide ones gate_step_wide; the
-        segment encoding is off, as in the JAX engine.  Each pending entry
-        is (where its bits go in the stage's arrays, which of its bits,
-        the [2, n/32] words)."""
-        d_qp, d_dp, d_qlen, d_dlen = dev
-        mesh = self._mesh
-        n_q = (d_thr if mesh is None else d_thr[0]).shape[0]
-        wide = n_q >= PACKED_MAX_READS
-        if mesh is not None and mesh.shape["dict"] > 1 and not wide:
+        ``fmt`` is the compare's candidate format (_gate_format); ``rids``
+        are query read ids, ``hits`` index rows, ``qoffs`` k-mer end
+        offsets (int32 each).  Each pending entry is (where its bits go in
+        the stage's arrays, which of its bits, the [2, n/32] words)."""
+        if fmt == "routed":
             return self._gate_chunks_routed(rids, hits, qoffs, d_thr, dev,
                                             window)
-        seg = (mesh is None and not wide and self._packed_idx
-               and self.index.n_entries <= SEG_MAX_INDEX_ROWS)
         pending = []
         # gate.dispatch / gate.fetch are sub-spans of resolve.extend;
         # gate.encode, gate.upload and gate.launch are sub-spans of
@@ -714,78 +782,15 @@ class TorchEngine:
         with timer.phase("gate.dispatch"):
             for pos, take, n_pad in self._gate_spans(len(hits), window):
                 sl = slice(pos, pos + take)
-                if wide:
-                    with timer.phase("gate.encode"):
-                        # (hit, read id, qoff, valid): the mesh step masks
-                        # the padding with the fourth row
-                        cand = np.zeros((4, n_pad), np.int32)
-                        cand[0, :take] = hits[sl]
-                        cand[1, :take] = rids[sl]
-                        cand[2, :take] = qoffs[sl]
-                        cand[3, :take] = 1
-                    with timer.phase("gate.upload"):
-                        sent = cand[:3] if mesh is None else cand
-                        timer.count("gate_cand_bytes", sent.nbytes)
-                        d_cand = (self._put(sent) if mesh is None
-                                  else mesh.put_cols(sent))
-                    with timer.phase("gate.launch"):
-                        if mesh is None:
-                            bits = flat_gate(
-                                d_qp, d_dp, d_qlen, d_dlen,
-                                self._d_idx_tab, d_cand, d_thr,
-                                window=window,
-                            )
-                        else:
-                            bits = sharded.gate_step_wide(
-                                mesh, d_qp, d_dp, d_qlen, d_dlen,
-                                self._d_idx_tab, d_cand, d_thr,
-                                window=window, shard_rows=self._shard_rows,
-                            )
-                elif seg:
-                    with timer.phase("gate.encode"):
-                        # segments <= candidates, so n_pad slots never
-                        # overflow
-                        nat = native.seg_encode(
-                            rids[sl], qoffs[sl], hits[sl], n_pad, n_pad
-                        )
-                        if nat is not None:
-                            cand1, rt, rb, nseg = nat
-                            rt, rb = rt[:nseg], rb[:nseg]
-                        else:
-                            cand1, rt, rb = encode_seg_chunk(
-                                rids[sl], qoffs[sl], hits[sl], n_pad
-                            )
-                    with timer.phase("gate.upload"):
-                        timer.count("gate_cand_bytes",
-                                    cand1.nbytes + rt.nbytes + rb.nbytes)
-                        d_cand = [self._put(a) for a in (cand1, rt, rb)]
-                    with timer.phase("gate.launch"):
-                        bits = flat_gate_seg(
-                            d_qp, d_dp, d_qlen, d_dlen, self._d_idx_tab,
-                            *d_cand, d_thr, window=window,
-                        )
-                else:
-                    with timer.phase("gate.encode"):
-                        cand = np.zeros((2, n_pad), np.int32)
-                        cand[0, :take] = hits[sl]
-                        cand[1, :take] = _rq_words(rids[sl], qoffs[sl])
-                    with timer.phase("gate.upload"):
-                        timer.count("gate_cand_bytes", cand.nbytes)
-                        d_cand = (self._put(cand) if mesh is None
-                                  else mesh.put_cols(cand))
-                    with timer.phase("gate.launch"):
-                        if mesh is None:
-                            bits = flat_gate_packed(
-                                d_qp, d_dp, d_qlen, d_dlen,
-                                self._d_idx_tab, d_cand, d_thr,
-                                window=window,
-                            )
-                        else:
-                            bits = sharded.gate_step(
-                                mesh, d_qp, d_dp, d_qlen, d_dlen,
-                                self._d_idx_tab, d_cand, d_thr,
-                                window=window, shard_rows=self._shard_rows,
-                            )
+                with timer.phase("gate.encode"):
+                    cand = self._gate_encode(fmt, rids[sl], hits[sl],
+                                             qoffs[sl], n_pad)
+                with timer.phase("gate.upload"):
+                    timer.count("gate_cand_bytes",
+                                sum(a.nbytes for a in cand))
+                    d_cand = [self._put_cols(a) for a in cand]
+                with timer.phase("gate.launch"):
+                    bits = self._gate_launch(fmt, dev, d_cand, d_thr, window)
                 pending.append((sl, slice(0, take), bits))
         return pending
 
@@ -799,16 +804,15 @@ class TorchEngine:
         whose bits the fetch un-permutes.  A chunk holds as many slots for
         every shard, so skew over the shards costs padding, not
         correctness."""
-        mesh = self._mesh
-        n_dict = mesh.shape["dict"]
+        n_dict = self._n_dict
         rows = self._shard_rows
         timer = self.timer
         # shard slots a chunk: the largest chunk's share, or the remainder
         # padded to 32 candidates a position (bits pack 32 per word per
         # shard)
-        gran = 32 * mesh.shape["data"]
+        gran = 32 * self._n_data
         s_max = gate_chunk_sizes(self.cfg.gate_chunks, window,
-                                 32 * mesh.size)[0] // n_dict
+                                 32 * self._n_pos)[0] // n_dict
         qpos = np.zeros(n_dict, np.int64)
         pending = []
         with timer.phase("gate.dispatch"):
@@ -824,7 +828,7 @@ class TorchEngine:
                     rem = counts - qpos
                     S = min(s_max, -(-int(rem.max()) // gran) * gran)
                     C = S * n_dict
-                    seg = S // mesh.shape["data"]  # slots per position
+                    seg = S // self._n_data  # slots per position
                     cand = np.zeros((2, C), np.int32)
                     perm = np.full(C, -1, np.int64)
                     for k in range(n_dict):
@@ -847,12 +851,10 @@ class TorchEngine:
                     valid = perm >= 0
                 with timer.phase("gate.upload"):
                     timer.count("gate_cand_bytes", cand.nbytes)
-                    d_cand = mesh.put_cols(cand, flat=True)
+                    d_cand = self._put_cols(cand, flat=True)
                 with timer.phase("gate.launch"):
-                    bits = sharded.gate_step_routed(
-                        mesh, *dev, self._d_idx_tab, d_cand, d_thr,
-                        window=window, shard_rows=rows,
-                    )
+                    bits = self._gate_launch("routed", dev, [d_cand], d_thr,
+                                             window)
                 pending.append((perm[valid], valid, bits))
         return pending
 
@@ -1070,6 +1072,7 @@ class TorchEngine:
 
         if idx.n_entries and n and Ccum[-1]:
             q_start = q.start.astype(np.int64)
+            fmt = self._gate_format(n)
 
             def sids_of(hits):
                 if idx.packed is not None:
@@ -1102,12 +1105,11 @@ class TorchEngine:
                     N = len(hits)
                     self.timer.count("gate_built_cands", N)
                 self._n_cands += N
-                w_small = self.cfg.gate_window_small
-                use_small = 0 < w_small < window and (
+                use_small = GATE_WINDOW_SMALL < window and (
                     window > SHORT_WINDOW
                     or (allow_small and N > SMALL_TIER_MIN_CANDIDATES)
                 )
-                w1 = w_small if use_small else window
+                w1 = GATE_WINDOW_SMALL if use_small else window
                 with self.timer.phase("resolve.extend"):
                     if enum is not None:
                         pending = self._enum_gate_dispatch(
@@ -1115,7 +1117,7 @@ class TorchEngine:
                         )
                     else:
                         pending = self._gate_chunks_dispatch(
-                            rids, hits, qoffs, d_thr, dev, w1
+                            fmt, rids, hits, qoffs, d_thr, dev, w1
                         )
 
                 def triples(sel):
@@ -1131,9 +1133,10 @@ class TorchEngine:
                         if use_small:
                             esc = np.flatnonzero(~exact)
                             if len(esc):
-                                p2, _ = self._gate_chunks(
-                                    *triples(esc), d_thr, dev, window
-                                )
+                                p2, _ = self._gate_chunks_fetch(
+                                    self._gate_chunks_dispatch(
+                                        fmt, *triples(esc), d_thr, dev,
+                                        window), len(esc))
                                 passes[esc] = p2
                     pr, ph, _ = triples(np.flatnonzero(passes))
                     return pr, sids_of(ph)
@@ -1279,27 +1282,15 @@ class TorchEngine:
         identities, n_steps, chain prefix) and the whole [B, 2L] chain.
         _render_collect_chains reads them.  ``dev`` is a compare's
         (d_qp, d_dp, d_qlen, d_dlen)."""
-        d_qp, d_dp, d_qlen, d_dlen = dev
         r_ids = np.array([rec.qread for rec in todo], np.int64)
         sids = np.array([rec.dbread for rec in todo], np.int64)
         qlens = np.zeros(int(r_ids.max()) + 1, np.int64)
-        for rec in todo:
-            qlens[rec.qread] = rec.ylen
+        qlens[r_ids] = [rec.ylen for rec in todo]
         pending = []
         for chunk, rpad, spad, L in self._nw_chunks(
             r_ids, sids, qlens, render=True, count_cells=False
         ):
-            if self._mesh is None:
-                res = nw_traceback_rows(
-                    d_qp, d_dp, self._put(rpad), self._put(spad), d_qlen,
-                    d_dlen, self.cfg.igap, self.cfg.egap, max_len=L,
-                )
-            else:
-                res = sharded.nw_render_step(
-                    self._mesh, d_qp, d_dp,
-                    self._mesh.put_cols(np.stack([rpad, spad]), flat=True),
-                    d_qlen, d_dlen, self.cfg.igap, self.cfg.egap, max_len=L,
-                )
+            res = self._nw_render(dev, rpad, spad, L)
             head = torch.cat([
                 torch.stack([res.length, res.identities, res.n_steps], 1),
                 res.chain[:, : self._CHAIN_PREFIX],

@@ -25,13 +25,13 @@ DEFAULT_MMAP_MAX = 65536
 DEFAULT_TRIM_THRESHOLD = 128 * 1024
 
 
-def _mallopt():
-    name = ctypes.util.find_library("c")
-    if name is None:
-        return None
-    fn = getattr(ctypes.CDLL(name), "mallopt", None)
+def _libc_fn(name: str, argtypes: tuple):
+    """The C library's function ``name``, declared; None where there is
+    none."""
+    lib = ctypes.util.find_library("c")
+    fn = None if lib is None else getattr(ctypes.CDLL(lib), name, None)
     if fn is not None:
-        fn.argtypes = (ctypes.c_int, ctypes.c_int)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -39,14 +39,18 @@ def _mallopt():
 def retain_freed_memory(on: bool = True) -> bool:
     """With ``on``, serve every allocation from the heap and never give
     the heap's freed top back to the system; with ``on`` False, restore
-    glibc's default values (its sliding mmap threshold stays off).
-    Returns False where the C library has no ``mallopt`` (not glibc),
-    and then changes nothing."""
-    mallopt = _mallopt()
+    glibc's default values (its sliding mmap threshold stays off) and
+    give back the free heap the policy kept (``malloc_trim(0)``), so
+    that a large array is mapped on its own again.  Returns False where
+    the C library has no ``mallopt`` (not glibc), and then changes
+    nothing."""
+    mallopt = _libc_fn("mallopt", (ctypes.c_int, ctypes.c_int))
     if mallopt is None:
         return False
     if on:
         return bool(mallopt(M_TRIM_THRESHOLD, 2**31 - 1)
                     and mallopt(M_MMAP_MAX, 0))
-    return bool(mallopt(M_MMAP_MAX, DEFAULT_MMAP_MAX)
-                and mallopt(M_TRIM_THRESHOLD, DEFAULT_TRIM_THRESHOLD))
+    restored = bool(mallopt(M_MMAP_MAX, DEFAULT_MMAP_MAX)
+                    and mallopt(M_TRIM_THRESHOLD, DEFAULT_TRIM_THRESHOLD))
+    _libc_fn("malloc_trim", (ctypes.c_size_t,))(0)
+    return restored

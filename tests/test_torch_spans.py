@@ -13,7 +13,6 @@ import torch
 
 from imsame_tpu_torch.config import Config
 from imsame_tpu_torch.io.fasta import read_fasta
-from imsame_tpu_torch.parallel.mesh import Mesh
 from imsame_tpu_torch.pipeline import TorchEngine
 from util_synth import make_pair
 
@@ -196,30 +195,24 @@ def test_upload_bytes_are_what_put_sends(quiet):
 
 
 def test_upload_bytes_on_a_mesh_count_host_arrays_once(samples):
-    """On a (2, 2) mesh of CPU positions: _put's arrays and the host
-    arrays the mesh uploads (put_rows, put_cols); tensors copied between
-    positions are not counted."""
+    """On a (2, 2) mesh of CPU positions: _put's arrays, the host arrays
+    the mesh uploads (put_rows, put_cols) among them; tensors copied
+    between positions are not counted."""
     sent = []
-    put, upload = TorchEngine._put, Mesh._upload
+    put = TorchEngine._put
 
-    def watched_put(self, x):
+    def watched_put(self, x, device=None):
         sent.append(np.ascontiguousarray(x).nbytes)
-        return put(self, x)
-
-    def watched_upload(self, part, dev):
-        if not isinstance(part, torch.Tensor):
-            sent.append(np.ascontiguousarray(part).nbytes)
-        return upload(self, part, dev)
+        return put(self, x, device)
 
     q, db = samples
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(TorchEngine, "_put", watched_put)
-        mp.setattr(Mesh, "_upload", watched_upload)
         eng = TorchEngine(db, Config(mesh_shape=(2, 2)), device="cpu",
                           mesh_devices=["cpu"] * 4)
         res = eng.compare(q)
         assert res.accepted > 0 and eng.render_report(q, res)
-    assert eng._mesh.timer is eng.timer
+        assert eng._mesh.upload == eng._put
     assert dict(eng.timer.counts())["h2d_bytes"] == sum(sent)
 
 
@@ -238,14 +231,14 @@ GATE_FORMATS = {
 @pytest.mark.parametrize("fmt", list(GATE_FORMATS))
 def test_gate_candidate_bytes_are_what_the_dispatch_sends(samples, fmt):
     """gate_cand_bytes sums the candidate arrays the gate's dispatch hands
-    to _put (one device) or Mesh.put_cols (a mesh): seg words and their
-    row tables, two words, three words (four on a mesh, with the valid
-    row), the routed planner's two words."""
+    to _put (on a mesh, as the column blocks Mesh.put_cols sends): seg
+    words and their row tables, two words, three words (four on a mesh,
+    with the valid row), the routed planner's two words."""
     from imsame_tpu_torch import pipeline
 
     packed_max, n_q, grid, rows = GATE_FORMATS[fmt]
     sent, inside = [], []
-    put, put_cols = TorchEngine._put, Mesh.put_cols
+    put = TorchEngine._put
     dispatch = TorchEngine._gate_chunks_dispatch
 
     def watched_dispatch(self, *a, **kw):
@@ -255,15 +248,10 @@ def test_gate_candidate_bytes_are_what_the_dispatch_sends(samples, fmt):
         finally:
             inside.pop()
 
-    def watched_put(self, x):
+    def watched_put(self, x, device=None):
         if inside:
             sent.append(np.ascontiguousarray(x))
-        return put(self, x)
-
-    def watched_put_cols(self, x, flat=False):
-        if inside:
-            sent.append(np.ascontiguousarray(x))
-        return put_cols(self, x, flat)
+        return put(self, x, device)
 
     q, db = samples
     q = q.slice_reads(0, n_q)
@@ -273,7 +261,6 @@ def test_gate_candidate_bytes_are_what_the_dispatch_sends(samples, fmt):
             mp.setattr(pipeline, "PACKED_MAX_READS", packed_max)
         mp.setattr(TorchEngine, "_gate_chunks_dispatch", watched_dispatch)
         mp.setattr(TorchEngine, "_put", watched_put)
-        mp.setattr(Mesh, "put_cols", watched_put_cols)
         eng = TorchEngine(db, cfg, device="cpu",
                           mesh_devices=None if grid is None
                           else ["cpu"] * (grid[0] * grid[1]))
