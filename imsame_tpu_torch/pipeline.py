@@ -139,6 +139,40 @@ def gate_chunk_sizes(chunks, window: int, gran: int = 32) -> list:
     return sorted(set(chunks), reverse=True)
 
 
+def first_window_at(cfg: Config, load: float) -> int:
+    """Candidates per read of gate stage 1 at an index's mean bucket load
+    (n_entries / 4^K): Config.first_window, widened with the load
+    (Config.first_window_auto; the cap bounds only the auto-widening -- an
+    explicitly larger first_window is honored)."""
+    F = cfg.first_window
+    if cfg.first_window_auto and load:
+        F = max(F, min(64, F * max(1, int(np.ceil(2.0 * load)))))
+    return F
+
+
+# The rung: k-mer slots of a read's second gate window.  One substitution
+# kills at most K consecutive k-mers, so a copy with one substitution near
+# its start has a clean seed among its first K + 1.
+RUNG_KMERS = FIXED_K + 1
+
+
+def rung_engages(first_window: int, load: float) -> bool:
+    """Whether the gate's ladder takes the rung, a second window of ranks
+    [F, W_r) (rung_window) before the whole tail of the reads stage 1
+    leaves open: where stage 1's F candidates reach fewer than K + 1
+    k-mers at the index's mean bucket load."""
+    return first_window < RUNG_KMERS * load
+
+
+def rung_window(stream, read_ids) -> np.ndarray:
+    """W_r of each of ``read_ids``: the candidates of the read's first
+    K + 1 k-mer slots (a rank, so at most its N_r).  ``stream`` is the
+    tuple of TorchEngine._kmer_stream."""
+    _, K_off, _, _, Ccum, C_off = stream
+    end = np.minimum(K_off[read_ids] + RUNG_KMERS, K_off[read_ids + 1])
+    return Ccum[end] - C_off[read_ids]
+
+
 def enum_padded_rows(n: int) -> int:
     """The row count that ENUM_MAX_ROWS bounds: n query reads
     padded to a power of two of at least 256, as the JAX engine pads its
@@ -991,16 +1025,13 @@ class TorchEngine:
                 )
 
     # ------------------------------------------------------------------
+    def load(self) -> float:
+        """The index's mean bucket load, n_entries / 4^K."""
+        return self.index.n_entries / float(4 ** FIXED_K)
+
     def first_window(self) -> int:
-        """Candidates per read of gate stage 1: Config.first_window, widened
-        with the index's average bucket load (Config.first_window_auto; the
-        cap bounds only the auto-widening -- an explicitly larger
-        first_window is honored)."""
-        F = self.cfg.first_window
-        if self.cfg.first_window_auto and self.index.n_entries:
-            load = self.index.n_entries / float(4 ** FIXED_K)
-            F = max(F, min(64, F * max(1, int(np.ceil(2.0 * load)))))
-        return F
+        """Candidates per read of gate stage 1 (first_window_at)."""
+        return first_window_at(self.cfg, self.load())
 
     def compare(self, q: SeqInfo) -> PipelineResult:
         """The reads of ``q`` against the db: accepted pairs and counters.
@@ -1081,9 +1112,9 @@ class TorchEngine:
 
             def gate_begin(read_ids, from_rank, to_rank, allow_small=True):
                 """Queue a gate for a rank window WITHOUT waiting; returns
-                a closure that fetches and maps the passes later, so the
-                gate's device time hides behind the NW wave and the
-                wave-1 judging.  Large stages, and every stage past
+                its candidate count and a closure that fetches and maps
+                the passes later, so the gate's device time hides behind
+                the NW wave and the wave-1 judging.  Large stages, and every stage past
                 SHORT_WINDOW, run the SMALL extension window first (random
                 reads' walks provably die inside it); the escapees
                 re-gate at the full window inside finish().  With device
@@ -1141,7 +1172,7 @@ class TorchEngine:
                     pr, ph, _ = triples(np.flatnonzero(passes))
                     return pr, sids_of(ph)
 
-                return finish
+                return N, finish
 
             with self.timer.phase("resolve"):
                 # Stage 1: first few candidates of every read (most reads
@@ -1151,9 +1182,9 @@ class TorchEngine:
                 # candidate -- which wave 1 cannot possibly resolve --
                 # queues behind that wave; only then is wave 1 fetched.
                 # The rare reads whose stage-1 pairs all got rejected gate
-                # their remainder afterwards, and one final NW wave
-                # resolves everything stage 2 surfaced.  Each stage builds
-                # the [F, N_r) candidate tails of only the reads it gates,
+                # their remainder afterwards (stage 3), and one final NW
+                # wave resolves everything stages 2 and 3 surfaced.  Each
+                # stage builds the candidates of only the reads it gates,
                 # when it is queued: stage 2's build runs while the device
                 # works on wave 1.  With device enumeration nothing is
                 # built: stages 2 and 3 enumerate their rank windows on the
@@ -1163,8 +1194,7 @@ class TorchEngine:
                 # anyway.
                 F = self.first_window()
                 all_reads = np.flatnonzero(N_r > 0)
-                c0 = self._n_cands
-                fin1 = gate_begin(
+                n1, fin1 = gate_begin(
                     all_reads,
                     np.zeros(len(all_reads), np.int64),
                     np.minimum(N_r[all_reads], F),
@@ -1176,7 +1206,7 @@ class TorchEngine:
                     cr1, cs1, ck1, key1 = self._dedup_pairs(
                         pr1, ps1, rejected_keys
                     )
-                ss["s1"] = (self._n_cands - c0, len(pr1), len(cr1))
+                ss["s1"] = (n1, len(pr1), len(cr1))
                 with self.timer.phase("resolve.nw"):
                     P1, pend1 = self._nw_dispatch_pairs(cr1, cs1, qlens, dev)
 
@@ -1184,15 +1214,27 @@ class TorchEngine:
                 if len(pr1):
                     has_pass[pr1] = True
                 spec = np.flatnonzero(~has_pass & (N_r > F))
-                pr2 = np.empty(0, np.int32)
-                ps2 = np.empty(0, np.int64)
-                fin2 = None
-                if len(spec):
+                # Stage 2 gates the tails [tail0, N_r) of the reads in
+                # spec.  Where rung_engages, a read whose first K + 1
+                # k-mers hold more than F candidates first gates the rung,
+                # ranks [F, W_r), queued in stage 2's place; only the
+                # reads it leaves open gate their tails from W_r.  A rung
+                # read has no stage-1 pass, so its first accept in the
+                # rung is its first in stream order.
+                tail0 = np.full(n, F, np.int64)
+                if len(spec) and rung_engages(F, self.load()):
+                    tail0[spec] = np.maximum(F, rung_window(stream, spec))
+                rung = spec[tail0[spec] > F]
+                fin2 = finw = None
+                n2 = 0
+                if len(rung):
+                    n_w, finw = gate_begin(
+                        rung, np.full(len(rung), F, np.int64), tail0[rung]
+                    )
+                elif len(spec):
                     # Stage 2 queued behind wave 1 and fetched only after
                     # judging: its compute overlaps the host judging.
-                    fin2 = gate_begin(
-                        spec, np.full(len(spec), F, np.int64), N_r[spec]
-                    )
+                    n2, fin2 = gate_begin(spec, tail0[spec], N_r[spec])
 
                 with self.timer.phase("resolve.nw"):
                     results1 = self._nw_fetch_pairs(P1, pend1, "nw.fetch1")
@@ -1204,13 +1246,43 @@ class TorchEngine:
 
                 leftover = np.flatnonzero(~resolved & (N_r > F) & has_pass)
                 fin3 = None
+                n3 = 0
                 if len(leftover):
                     # queue the leftover gate BEFORE fetching stage 2: it
                     # computes while the host waits on stage 2.
-                    fin3 = gate_begin(
+                    n3, fin3 = gate_begin(
                         leftover, np.full(len(leftover), F, np.int64),
                         N_r[leftover],
                     )
+                if finw is not None:
+                    # The rung's passes are deduped, NW'd and judged like
+                    # stage 1's; the spec reads it leaves unresolved (no
+                    # rung pass, or every rung pair rejected) then gate
+                    # their tails in stage 2's place.
+                    prw, psw = finw()
+                    with self.timer.phase("resolve.judge"):
+                        crw, csw, ckw, keyw = self._dedup_pairs(
+                            prw, psw, rejected_keys
+                        )
+                    ss["s2w"] = (n_w, len(prw), len(crw))
+                    with self.timer.phase("resolve.nw"):
+                        Pw, pendw = self._nw_dispatch_pairs(
+                            crw, csw, qlens, dev)
+                        results_w = self._nw_fetch_pairs(Pw, pendw,
+                                                         "nw.fetch2")
+                    with self.timer.phase("resolve.judge"):
+                        self._judge_and_replay(
+                            results_w, ckw, prw, psw, keyw,
+                            rejected_keys, resolved, accepted_records, cfg,
+                        )
+                    self.timer.count("gate_rung_reads", len(rung))
+                    self.timer.count("gate_rung_resolved",
+                                     resolved[rung].sum())
+                    tail = spec[~resolved[spec] & (tail0[spec] < N_r[spec])]
+                    if len(tail):
+                        n2, fin2 = gate_begin(tail, tail0[tail], N_r[tail])
+                pr2 = np.empty(0, np.int32)
+                ps2 = np.empty(0, np.int64)
                 if fin2 is not None:
                     pr2, ps2 = fin2()
                 # Speculative wave A: NW the stage-2 passes' unique pairs
@@ -1222,10 +1294,7 @@ class TorchEngine:
                     cr2, cs2, ck2, key2 = self._dedup_pairs(
                         pr2, ps2, rejected_keys
                     )
-                ss["s2"] = (
-                    int(N_r[spec].sum() - len(spec) * F) if len(spec) else 0,
-                    len(pr2), len(cr2),
-                )
+                ss["s2"] = (n2, len(pr2), len(cr2))
                 with self.timer.phase("resolve.nw"):
                     P2, pend2 = self._nw_dispatch_pairs(cr2, cs2, qlens, dev)
                 pr3 = np.empty(0, np.int32)
@@ -1236,11 +1305,7 @@ class TorchEngine:
                     cr3, cs3, ck3, key3 = self._dedup_pairs(
                         pr3, ps3, rejected_keys, extra=ck2
                     )
-                ss["s3"] = (
-                    int(N_r[leftover].sum() - len(leftover) * F)
-                    if len(leftover) else 0,
-                    len(pr3), len(cr3),
-                )
+                ss["s3"] = (n3, len(pr3), len(cr3))
                 with self.timer.phase("resolve.nw"):
                     P3, pend3 = self._nw_dispatch_pairs(cr3, cs3, qlens, dev)
                     results2 = self._nw_fetch_pairs(P2, pend2, "nw.fetch2")

@@ -167,22 +167,33 @@ def _wide_regime(regime):
     return q_codes, db_codes
 
 
-@pytest.mark.parametrize("regime", ["wide_db", "wide_query"])
-def test_engine_wide_regime_matches_jax(monkeypatch, plain_rows_once, regime):
+@pytest.mark.parametrize("regime,rung", [
+    pytest.param("wide_db", False, id="wide_db"),
+    pytest.param("wide_query", False, id="wide_query"),
+    pytest.param("wide_db", True, id="wide_db-rung"),
+])
+def test_engine_wide_regime_matches_jax(monkeypatch, plain_rows_once, regime,
+                                        rung):
     """2^20 + 8 reads on one side: the port (on the CPU) takes the wide
     index or the wide candidate format, as the JAX engine does, and gives
     its pairs and report bytes, on one device and on the (2, 4) mesh
     (tests/test_capacity.py's regimes under the mesh): the wide index
     split over "dict" behind the routed gate, or the wide query through
-    the sharded wide gate."""
+    the sharded wide gate.  With the gate's rung off the candidates and
+    stage stats are the JAX engine's; the wide db's load engages the rung
+    (``rung``), which gates fewer."""
     import imsame_tpu_torch.pipeline as tpipe
 
+    rule = tpipe.rung_engages
+    if not rung:
+        monkeypatch.setattr(tpipe, "rung_engages", lambda F, load: False)
     q_codes, db_codes = _wide_regime(regime)
     jq, tq = _seqinfos(q_codes)
     jdb, tdb = _seqinfos(db_codes)
     jeng = TpuEngine(jdb, JConfig(mesh_shape=None))
     jres = jeng.compare(jq)
     jreport = jeng.render_report(jq, jres)
+    jstages = dict(jeng.stage_stats)
     del jeng
 
     formats = []
@@ -194,8 +205,23 @@ def test_engine_wide_regime_matches_jax(monkeypatch, plain_rows_once, regime):
     teng = TorchEngine(tdb, TConfig(), device="cpu")
     tres = teng.compare(tq)
     assert tres.pairs == jres.pairs
-    assert tres.n_candidates == jres.n_candidates
+    stages = teng.stage_stats
+    if rung:
+        # The wide db holds 5.57 index entries a bucket, past the load at
+        # which stage 1's capped window covers K + 1 k-mers: the rung
+        # engages and the reads it resolves build no tails.  Stages 1 and
+        # 3 are the JAX engine's; the rung and the tails gate fewer
+        # candidates than its stage 2.
+        assert dict(teng.timer.counts())["gate_rung_resolved"] > 0
+        assert stages["s1"] == jstages["s1"]
+        assert stages["s3"] == jstages["s3"]
+        assert stages["s2w"][0] + stages["s2"][0] < jstages["s2"][0]
+        assert tres.n_candidates < jres.n_candidates
+    else:
+        assert tres.n_candidates == jres.n_candidates
+        assert stages == jstages
     assert teng.render_report(tq, tres) == jreport
+    assert rule(teng.first_window(), teng.load()) == (regime == "wide_db")
     if regime == "wide_db":
         assert tdb.n_seqs >= PACKED_MAX_READS and jres.accepted >= 200
         assert teng.index.packed is None and not teng._packed_idx
@@ -204,6 +230,7 @@ def test_engine_wide_regime_matches_jax(monkeypatch, plain_rows_once, regime):
         assert tq.n_seqs >= PACKED_MAX_READS and jres.accepted > 0
         assert teng._packed_idx
         assert set(formats) == {("flat_gate", False)}
+    n_cands = tres.n_candidates
     del teng, tres
 
     steps = []
@@ -216,7 +243,11 @@ def test_engine_wide_regime_matches_jax(monkeypatch, plain_rows_once, regime):
                        mesh_devices=["cpu"] * 8)
     mres = meng.compare(tq)
     assert mres.pairs == jres.pairs
-    assert mres.n_candidates == jres.n_candidates
+    if rung:
+        assert mres.n_candidates == n_cands
+    else:
+        assert mres.n_candidates == jres.n_candidates
+    assert meng.stage_stats == stages
     assert meng.render_report(tq, mres) == jreport
     if regime == "wide_db":
         assert set(steps) == {"gate_step_routed"}
