@@ -20,6 +20,21 @@ only writes each new index to the cache).  The JAX orchestrator overlaps
 a render worker and an engine prefetch with the compare; on one H100 that
 design gave no gain the measurement could resolve (PERF.md), so the port
 keeps the serial loop.
+
+The runner keeps its own ``PhaseTimer`` (``runner.timer``), whose phases
+are ``imsame.sweep.*`` ranges while a torch profiler records:
+``sweep.read`` (FASTA parses of queries and forward dbs), ``sweep.revcomp``
+(a db's reverse complement and its parse), ``sweep.index`` (the cache's
+load or the build, and the save's start), ``sweep.engine`` (the engine's
+construction and uploads), ``sweep.compare``, ``sweep.render``,
+``sweep.write`` (each report and stats file, written and renamed) and
+``sweep.save_wait`` (the cache's saves joined at the end); and its
+counters ``sweep_jobs``, ``sweep_engine_builds``, ``sweep_index_builds``
+(cache misses), ``sweep_index_loads`` (cache hits) and
+``sweep_bytes_written`` (every report, stats file and cached index that
+lands).  ``engine_timings`` and ``engine_counts`` sum the phases and
+counters of every engine the runner built, its construction and each
+job's share, so the LRU's evictions lose none of them.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ from .io.fasta import (
 )
 from .io.report import jaccard_index
 from .pipeline import TorchEngine
+from .utils.timing import PhaseTimer
 
 
 @dataclasses.dataclass
@@ -110,14 +126,30 @@ class AllVsAllRunner:
         self._queries: "collections.OrderedDict[str, SeqInfo]" = (
             collections.OrderedDict()
         )
-        self._save_threads: List[threading.Thread] = []
+        # each cache save's thread and the size it landed (None until it
+        # has), which the calling thread counts once the threads joined
+        self._saves: List[Tuple[threading.Thread, list]] = []
         self._tmp_swept = False
+        self.timer = PhaseTimer()
+        self.engine_timings: Dict[str, float] = collections.defaultdict(float)
+        self.engine_counts: Dict[str, int] = collections.defaultdict(int)
+
+    def _add_engine_share(self, eng: TorchEngine, before=None) -> None:
+        """Add to the sweep's engine sums what `eng`'s timer gained since
+        `before` (its sums then, as (timings, counts); all of it where
+        None)."""
+        t0, c0 = before or ({}, {})
+        for k, v in eng.timer.items():
+            self.engine_timings[k] += v - t0.get(k, 0.0)
+        for k, v in eng.timer.counts():
+            self.engine_counts[k] += v - c0.get(k, 0)
 
     def _load_query(self, job: PairJob) -> SeqInfo:
         q = self._queries.get(job.qname)
         if q is None:
             # read_fasta streams >256 MB files in bounded memory
-            q = read_fasta(str(job.qpath))
+            with self.timer.phase("sweep.read"):
+                q = read_fasta(str(job.qpath))
             self._queries[job.qname] = q
         self._queries.move_to_end(job.qname)
         while len(self._queries) > self.max_queries:
@@ -154,10 +186,12 @@ class AllVsAllRunner:
                     idx.db_total_len == db.total_len
                     and idx.db_n_seqs == db.n_seqs
                 ):
+                    self.timer.count("sweep_index_loads", 1)
                     return idx
             except Exception:
                 pass  # corrupt/stale cache entry: rebuild below
         idx = build_index(db)
+        self.timer.count("sweep_index_builds", 1)
         # Cache write off the critical path: the save only pays off on a
         # RESUMED sweep, so it runs in a background thread (numpy I/O
         # releases the GIL); the atomic rename keeps partial writes
@@ -168,11 +202,14 @@ class AllVsAllRunner:
             prefix=path.stem + ".tmp", suffix=".npz", dir=cache_dir
         )
         os.close(fd)
+        landed = [None]
 
         def _persist():
             try:
                 save_index(idx, tmp)
+                size = os.path.getsize(tmp)
                 os.replace(tmp, path)
+                landed[0] = size
             except Exception:
                 try:
                     os.unlink(tmp)
@@ -182,23 +219,30 @@ class AllVsAllRunner:
 
         t = threading.Thread(target=_persist, daemon=True)
         t.start()
-        self._save_threads.append(t)
+        self._saves.append((t, landed))
         return idx
 
     def _build_engine(self, job: PairJob) -> TorchEngine:
         """Parse (+revcomp) the db sample and build its engine."""
         key = (job.dbname, job.reverse)
+        timer = self.timer
         if job.reverse:
             # revComp reverses file order (src/reverseComplement.c:56)
             # -- inherently two-pass, so it stays whole-file
-            db = parse_fasta_bytes(
-                revcomp_fasta_bytes(job.dbpath.read_bytes())
-            )
+            with timer.phase("sweep.revcomp"):
+                db = parse_fasta_bytes(
+                    revcomp_fasta_bytes(job.dbpath.read_bytes())
+                )
         else:
-            db = read_fasta(str(job.dbpath))
-        return TorchEngine(
-            db, self.cfg, index=self._index_for(key, db), device=self.device
-        )
+            with timer.phase("sweep.read"):
+                db = read_fasta(str(job.dbpath))
+        with timer.phase("sweep.index"):
+            idx = self._index_for(key, db)
+        with timer.phase("sweep.engine"):
+            eng = TorchEngine(db, self.cfg, index=idx, device=self.device)
+        timer.count("sweep_engine_builds", 1)
+        self._add_engine_share(eng)
+        return eng
 
     def _engine_for(self, job: PairJob) -> TorchEngine:
         key = (job.dbname, job.reverse)
@@ -215,32 +259,43 @@ class AllVsAllRunner:
         """Compare, render and write one job's report and stats, each file
         atomically.  The recorded 'seconds' is the job's wall from loading
         its query to its rendered report, as the JAX tool records it."""
+        timer = self.timer
         t0 = time.perf_counter()
         q = self._load_query(job)
         eng = self._engine_for(job)
-        res = eng.compare(q)
-        report = eng.render_report(q, res)
+        before = (dict(eng.timer.items()), dict(eng.timer.counts()))
+        try:
+            with timer.phase("sweep.compare"):
+                res = eng.compare(q)
+            with timer.phase("sweep.render"):
+                report = eng.render_report(q, res)
+        finally:
+            self._add_engine_share(eng, before)
         seconds = time.perf_counter() - t0
-        out_path = self.outdir / job.out_name
-        tmp = out_path.with_suffix(out_path.suffix + ".tmp")
-        tmp.write_bytes(report)
-        os.replace(tmp, out_path)  # atomic completion marker
-        entry = {
-            "query": job.qname,
-            "db": job.dbname,
-            "reverse": job.reverse,
-            "accepted": res.accepted,
-            "n_query": res.n_query,
-            "n_db": res.n_db,
-            "jaccard": jaccard_index(res.accepted, res.n_query, res.n_db),
-            "seconds": seconds,
-            "nw_cells": res.nw_cells,
-            "candidates": res.n_candidates,
-        }
-        stats_path = self.outdir / (job.out_name + ".json")
-        tmp_s = stats_path.with_suffix(".json.tmp")
-        tmp_s.write_text(json.dumps(entry))
-        os.replace(tmp_s, stats_path)
+        with timer.phase("sweep.write"):
+            out_path = self.outdir / job.out_name
+            tmp = out_path.with_suffix(out_path.suffix + ".tmp")
+            tmp.write_bytes(report)
+            os.replace(tmp, out_path)  # atomic completion marker
+            entry = {
+                "query": job.qname,
+                "db": job.dbname,
+                "reverse": job.reverse,
+                "accepted": res.accepted,
+                "n_query": res.n_query,
+                "n_db": res.n_db,
+                "jaccard": jaccard_index(res.accepted, res.n_query, res.n_db),
+                "seconds": seconds,
+                "nw_cells": res.nw_cells,
+                "candidates": res.n_candidates,
+            }
+            text = json.dumps(entry)  # ASCII: one byte a character
+            stats_path = self.outdir / (job.out_name + ".json")
+            tmp_s = stats_path.with_suffix(".json.tmp")
+            tmp_s.write_text(text)
+            os.replace(tmp_s, stats_path)
+        timer.count("sweep_bytes_written", len(report) + len(text))
+        timer.count("sweep_jobs", 1)
         return entry
 
     def run(self, samples: List[Tuple[str, Path]]) -> Dict[str, dict]:
@@ -251,6 +306,7 @@ class AllVsAllRunner:
         process's jobs are grouped by (db, reverse) so the LRU engine
         cache (device-resident index + packed rows) is reused across every
         pair sharing a database sample."""
+        self.timer.trace()
         jobs = [
             job
             for k, job in enumerate(make_jobs(samples))
@@ -276,9 +332,13 @@ class AllVsAllRunner:
             fp = self.outdir / f"failures.host{self.host_id}.json"
             fp.write_text(json.dumps(failures, indent=1))
         self.failures = failures
-        for t in self._save_threads:  # let cache writes land before exit
-            t.join(timeout=60)
-        self._save_threads.clear()
+        with self.timer.phase("sweep.save_wait"):
+            for t, _ in self._saves:  # let cache writes land before exit
+                t.join(timeout=60)
+        for _, landed in self._saves:
+            if landed[0] is not None:
+                self.timer.count("sweep_bytes_written", landed[0])
+        self._saves.clear()
         return stats
 
 

@@ -8,6 +8,7 @@ past the next compare on the same engine, the revcomp tool, the console
 scripts, and the reverse-complement anchor that chip_smoke.py holds the
 card to."""
 
+import collections
 import importlib
 import json
 import random
@@ -293,6 +294,76 @@ def test_deferred_render_on_shared_engine(tmp_path, reverse):
     for q_name, report in zip(q_names, got):
         jq = jread_fasta(str(samples[q_name]))
         assert report == jeng.render_report(jq, jeng.compare(jq)), q_name
+
+
+SWEEP_PHASES = {f"sweep.{p}" for p in (
+    "read", "revcomp", "index", "engine", "compare", "render", "write",
+    "save_wait")}
+
+
+def test_sweep_phases_and_counters(tmp_path):
+    """A 4-sample sweep at max_engines=2 times every sweep.* phase and
+    counts its 12 jobs, 6 engines and 6 index builds and every byte that
+    lands in the outdir; its engines' summed counters, though the LRU
+    evicted four engines, are those of the 12 compares run through one
+    fresh engine a (db, strand), construction included.  Rerun on the
+    kept cache after its reports and stats are deleted, it loads the 6
+    indexes, builds none, writes only reports and stats, and gives the
+    same stats."""
+    samples = write_samples(tmp_path / "samples", random.Random(8),
+                            n_samples=4, n_reads=24)
+    out = tmp_path / "out"
+    runner, stats = run_port(out, samples)
+    assert runner.failures == {} and len(stats) == 12
+    assert set(dict(runner.timer.items())) == SWEEP_PHASES
+    counts = dict(runner.timer.counts())
+    landed = [p for p in out.rglob("*") if p.is_file()]
+    assert len([p for p in landed if p.suffix == ".npz"]) == 6
+    assert counts == {
+        "sweep_jobs": 12, "sweep_engine_builds": 6, "sweep_index_builds": 6,
+        "sweep_bytes_written": sum(p.stat().st_size for p in landed)}
+
+    want, engines = collections.Counter(), {}
+    for job in make_jobs(samples):
+        key = (job.dbname, job.reverse)
+        if key not in engines:
+            raw = job.dbpath.read_bytes()
+            db = parse_fasta_bytes(revcomp_fasta_bytes(raw) if job.reverse
+                                   else raw)
+            engines[key] = TorchEngine(db, TConfig(**SMALL), device="cpu")
+        q = read_fasta(str(job.qpath))
+        engines[key].render_report(q, engines[key].compare(q))
+    for eng in engines.values():
+        want.update(dict(eng.timer.counts()))
+    assert want["nw_launched_cells"] and want["gate_built_cands"]
+    assert dict(runner.engine_counts) == dict(want)
+    assert {"engine", "compare", "render_report"} <= set(
+        runner.engine_timings)
+
+    for p in list(out.glob("*.align")) + list(out.glob("*.json")):
+        p.unlink()
+    runner2, again = run_port(out, samples)
+    counts2 = dict(runner2.timer.counts())
+    assert counts2["sweep_index_loads"] == 6
+    assert "sweep_index_builds" not in counts2
+    assert counts2["sweep_engine_builds"] == 6
+    assert counts2["sweep_bytes_written"] == sum(
+        p.stat().st_size for p in out.iterdir() if p.is_file())
+    assert strip_seconds(again) == strip_seconds(stats)
+
+
+def test_sweep_phases_are_profiler_ranges(tmp_path):
+    """Under a recording torch profiler each sweep.* phase is an
+    imsame.sweep.* range (read off the profiler's raw events: its
+    key_averages take minutes over a sweep's CPU ops)."""
+    samples = write_samples(tmp_path / "samples", random.Random(9),
+                            n_samples=2, n_reads=6)
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU]) as prof:
+        runner, _ = run_port(tmp_path / "out", samples)
+    assert runner.failures == {}
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert {"imsame." + p for p in SWEEP_PHASES} <= names
 
 
 REVCOMP_INPUTS = {
