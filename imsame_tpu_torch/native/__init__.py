@@ -120,13 +120,15 @@ def __getattr__(name):
 
 
 def build_index_arrays(codes, fresh, start, k: int, packable: bool):
-    """Parallel counting-sort index build (pthreads over input ranges).
-    Returns (bucket_start, packed, pos, sid) sorted by (key asc, pos desc),
-    or None if the native lib is unavailable.  In the packable regime
-    (n_seqs < 2^20 and read lengths < 4096) only the (sid << 12 | doff)
-    device-payload words are scattered -- the bandwidth bottleneck of the
-    build -- and pos/sid come back None (KmerIndex derives them lazily);
-    otherwise packed is None and pos/sid are filled."""
+    """Parallel index build (host.c imsame_index_build: a partitioned
+    counting sort over pthreads: one thread per IDX_MIN_ENTRIES_PER_THREAD
+    window ends, up to the cores).  Returns (bucket_start, packed, pos,
+    sid) sorted by (key asc, pos desc), or None if the native lib is
+    unavailable or its temporaries cannot be allocated.  In the packable
+    regime (n_seqs < 2^20 and read lengths < 4096) only the (sid << 12 |
+    doff) device-payload words are written and pos/sid come back None
+    (KmerIndex derives them lazily); otherwise packed is None and pos/sid
+    are filled."""
     lib = load()
     if lib is None:
         return None

@@ -4,9 +4,9 @@
  * pipeline -- index construction and candidate-stream expansion -- where the
  * reference spends its single-threaded C time (dict build src/IMSAME.c:232-281,
  * per-thread k-mer scan src/alignmentFunctions.c:91-121).  They replace the
- * multi-pass numpy formulations with single-pass C: a counting sort over the
- * 4^k key space instead of argsort, and fused rolling-key + bucket-lookup +
- * prefix-sum loops.
+ * multi-pass numpy formulations with C passes: a partitioned counting sort
+ * instead of argsort, and fused rolling-key + bucket-lookup + prefix-sum
+ * loops.
  *
  * Semantics are bit-compatible with the numpy paths (tests/test_native.py
  * checks exact equality); layout contracts:
@@ -35,25 +35,44 @@ static inline uint32_t key_mask(int32_t k) {
 }
 
 /* ------------------------------------------------------------------ *
- * Parallel counting-sort index build.
+ * Parallel index build: a two-level partitioned counting sort.
  *
  * Replaces the reference's single-threaded insert loop
- * (src/IMSAME.c:232-281).  The input stream is split into T contiguous
- * window-end ranges; each thread counts its range into a private
- * [n_buckets] array, a parallel pass over the bucket space turns the
- * private counts into per-thread write cursors, and each thread then
- * rescans its range scattering entries.  Per-bucket order: later threads
- * own higher positions and their subrange is placed FIRST in the bucket,
- * and every thread fills its subrange from the end downward as positions
- * ascend -- so the global bucket order is descending pos, the reference's
- * prepend-on-insert "newest first" (src/IMSAME.c:263-276, quirk 6.1).
+ * (src/IMSAME.c:232-281).  A key of 2k bits splits into its top S bits,
+ * the partition, and its low F = 2k - S bits, the fine key; F is at most
+ * IDX_FINE_BITS, so one partition's counters (2^F) stay in a core's
+ * cache, and the threads' partition tables hold T x 2^S counters.  No
+ * table of the 4^k key space is allocated: every temporary grows with
+ * the entries, and the only full-width write is bucket_start itself.
+ * Four passes:
+ *
+ *   count    threads take contiguous window-end ranges and count their
+ *            valid k-mers per partition;
+ *   prefix   one serial prefix over (partition, thread) gives every
+ *            thread its write cursor in each partition's region, threads
+ *            in ascending order, so a region holds its entries in
+ *            ascending position;
+ *   scatter  threads rescan their ranges and append each entry's fine
+ *            key (uint16) and payload to its partition's region: the
+ *            payload into the output arrays, whose partition regions
+ *            are the ones the sorted index gives each partition;
+ *   place    threads take contiguous partition ranges, balanced by
+ *            entries.  A partition's fine keys are histogrammed, its
+ *            slice of bucket_start written, its payload copied to a
+ *            scratch buffer and placed back from each bucket's end
+ *            downward: entries arrive in ascending position, so every
+ *            bucket comes out in descending position, the reference's
+ *            prepend-on-insert "newest first" (src/IMSAME.c:263-276,
+ *            quirk 6.1).
  *
  * A k-mer ending at p is valid iff its k bases were appended with no
  * window reset: no fresh flag in (p-k+1, p].  Threads warm up their
  * rolling key/run state from p_lo-k+1, so the split is seam-free.
+ * Threads: the caller's count, capped at 32 and at one thread per
+ * IDX_MIN_ENTRIES_PER_THREAD window ends (each window end is at most one
+ * entry), so small builds run on one thread.
  *
- * Output modes (the scatter is the bandwidth bottleneck, so we only emit
- * what the regime needs; keys/pos/sid are derived lazily in Python):
+ * Output modes (keys/pos/sid are derived lazily in Python):
  *   mode 1 (packable: n_seqs < 2^20 and read lens < 4096):
  *       out_packed[o] = (sid << 12) | (pos - start[sid])
  *   mode 0: out_pos[o] = one-past-kmer-end (src/IMSAME.c:247),
@@ -62,100 +81,149 @@ static inline uint32_t key_mask(int32_t k) {
  * falls back to numpy).
  * ------------------------------------------------------------------ */
 
+/* fine key bits: a partition's histogram of 2^12 int64 counters, 32 KB
+   (on an H100's 8-core host, F = 12 built a wide db of 1,081,344 250 bp
+   reads fastest, and came within 12 ms of F = 14-16 at 20k and 100k) */
+#define IDX_FINE_BITS 12
+/* partition bits at most, so a fine key fits a uint16 up to k = 16 */
+#define IDX_MAX_PART_BITS 16
+/* window ends a thread takes at least */
+#define IDX_MIN_ENTRIES_PER_THREAD (1 << 17)
+
 typedef struct {
     const uint8_t *codes, *fresh;
     const int64_t *start;
-    int64_t n_seqs, n, n_buckets;
-    int32_t k, T, tid;
+    int64_t n_seqs;
+    int32_t k, F;         /* k-mer length, fine key bits */
     int64_t p_lo, p_hi;   /* window-end range [p_lo, p_hi) */
-    int64_t b_lo, b_hi;   /* bucket range for the cursor pass */
-    int32_t **counts;     /* [T][n_buckets] private counts -> cursors */
-    int32_t *bucket_start;
-    uint32_t *out_packed;
+    int64_t *cur;         /* [max(2^S, 2^F)]: a partition's counts, then
+                             write cursors; in the place pass a fine
+                             key's counts, then end cursors */
+    uint16_t *fine;       /* [entries]: fine keys, partition-ordered */
+    uint32_t *out_packed; /* NULL in the wide mode */
     int32_t *out_pos, *out_sid;
-    int64_t range_total;  /* out of the count pass / in of cursor pass */
-    int64_t bucket_base;  /* global offset of this thread's bucket range */
-    int64_t total;        /* sum over earlier bucket ranges (phase b) */
+    /* place pass */
+    int64_t part_lo, part_hi;
+    const int64_t *part_start; /* [2^S + 1] */
+    int32_t *bucket_start;
+    int32_t *scratch;     /* [1 or 2 x the largest partition of the range] */
 } IdxTask;
 
+/* The window ends [p_lo, p_hi) whose k-mer is valid, in ascending order:
+ * the rolling key and run warm up from p_lo-k+1, and EACH runs for each
+ * valid window end `p` with its k-mer in `key`. */
+#define IDX_SCAN(t, EACH)                                                   \
+    do {                                                                    \
+        const uint8_t *restrict codes_ = (t)->codes, *restrict fresh_ =    \
+            (t)->fresh;                                                     \
+        const uint32_t mask_ = key_mask((t)->k);                            \
+        const int64_t k_ = (t)->k, p_hi_ = (t)->p_hi;                       \
+        int64_t p_ = (t)->p_lo - (k_ - 1), first_ = (t)->p_lo;              \
+        if (p_ < 0) p_ = 0;                                                 \
+        if (first_ < k_ - 1) first_ = k_ - 1;                               \
+        if (first_ > p_hi_) first_ = p_hi_;                                 \
+        uint32_t key = 0;                                                   \
+        int64_t run_ = 0;                                                   \
+        for (; p_ < first_; p_++) {                                         \
+            key = ((key << 2) | codes_[p_]) & mask_;                        \
+            run_ = fresh_[p_] ? 1 : run_ + 1;                               \
+        }                                                                   \
+        for (int64_t p = p_; p < p_hi_; p++) {                              \
+            key = ((key << 2) | codes_[p]) & mask_;                         \
+            run_ = fresh_[p] ? 1 : run_ + 1;                                \
+            if (run_ >= k_) { EACH; }                                       \
+        }                                                                   \
+    } while (0)
+
 static void *idx_count_pass(void *arg) {
-    IdxTask *t = (IdxTask *)arg;
-    const uint32_t mask = key_mask(t->k);
-    int32_t *cnt = t->counts[t->tid];
-    uint32_t key = 0;
-    int64_t run = 0;
-    int64_t warm = t->p_lo - (t->k - 1);
-    if (warm < 0) warm = 0;
-    for (int64_t p = warm; p < t->p_hi; p++) {
-        key = ((key << 2) | t->codes[p]) & mask;
-        run = t->fresh[p] ? 1 : run + 1;
-        if (p >= t->p_lo && p >= t->k - 1 && run >= t->k) cnt[key]++;
-    }
+    const IdxTask *t = (const IdxTask *)arg;
+    const int F = t->F;
+    int64_t *restrict cnt = t->cur;
+    IDX_SCAN(t, cnt[key >> F]++);
     return NULL;
 }
 
-/* phase 2a: per-bucket-range grand totals (for the cross-range prefix) */
-static void *idx_range_total(void *arg) {
-    IdxTask *t = (IdxTask *)arg;
-    int64_t acc = 0;
-    for (int64_t b = t->b_lo; b < t->b_hi; b++)
-        for (int32_t j = 0; j < t->T; j++) acc += t->counts[j][b];
-    t->range_total = acc;
-    return NULL;
-}
-
-/* phase 2b: write the global prefix table and turn the private counts
- * into per-thread end-cursors (cursor[tid][b] = one past tid's subrange,
- * later threads placed first within the bucket). */
-static void *idx_cursor_pass(void *arg) {
-    IdxTask *t = (IdxTask *)arg;
-    int64_t acc = t->bucket_base;
-    for (int64_t b = t->b_lo; b < t->b_hi; b++) {
-        t->bucket_start[b] = (int32_t)acc;
-        int64_t suffix = 0;
-        for (int32_t j = t->T - 1; j >= 0; j--) {
-            suffix += t->counts[j][b];
-            t->counts[j][b] = (int32_t)(acc + suffix);
-        }
-        acc += suffix;
-    }
-    return NULL;
-}
-
-static void *idx_fill_pass(void *arg) {
-    IdxTask *t = (IdxTask *)arg;
-    const uint32_t mask = key_mask(t->k);
-    int32_t *cur = t->counts[t->tid];
-    uint32_t key = 0;
-    int64_t run = 0;
-    int64_t warm = t->p_lo - (t->k - 1);
-    if (warm < 0) warm = 0;
+static void *idx_scatter_pass(void *arg) {
+    const IdxTask *t = (const IdxTask *)arg;
+    const int F = t->F;
+    const uint32_t fmask = (1u << F) - 1u;
+    const int64_t *restrict start = t->start;
+    const int64_t n_seqs = t->n_seqs, k = t->k;
+    int64_t *restrict cur = t->cur;
+    uint16_t *restrict fine = t->fine;
+    uint32_t *restrict out_packed = t->out_packed;
+    int32_t *restrict out_pos = t->out_pos, *restrict out_sid = t->out_sid;
     /* read id of the first window start via binary search, then linear */
     int64_t r = 0;
     {
-        int64_t ps0 = t->p_lo - (t->k - 1);
+        int64_t ps0 = t->p_lo - (k - 1);
         if (ps0 < 0) ps0 = 0;
-        int64_t a = 0, b = t->n_seqs;
+        int64_t a = 0, b = n_seqs;
         while (a < b) { /* upper_bound(start, ps0) - 1 */
             int64_t mid = a + (b - a) / 2;
-            if (t->start[mid] <= ps0) a = mid + 1; else b = mid;
+            if (start[mid] <= ps0) a = mid + 1; else b = mid;
         }
         r = a > 0 ? a - 1 : 0;
     }
+    int64_t base = n_seqs ? start[r] : 0;
+    int64_t next = r + 1 < n_seqs ? start[r + 1] : INT64_MAX;
+    if (out_packed)
+        IDX_SCAN(t, {
+            while (p - k + 1 >= next) {
+                base = next;
+                next = ++r + 1 < n_seqs ? start[r + 1] : INT64_MAX;
+            }
+            int64_t o = cur[key >> F]++;
+            fine[o] = (uint16_t)(key & fmask);
+            out_packed[o] = ((uint32_t)r << 12) | (uint32_t)(p + 1 - base);
+        });
+    else
+        IDX_SCAN(t, {
+            while (p - k + 1 >= next)
+                next = ++r + 1 < n_seqs ? start[r + 1] : INT64_MAX;
+            int64_t o = cur[key >> F]++;
+            fine[o] = (uint16_t)(key & fmask);
+            out_pos[o] = (int32_t)(p + 1);
+            out_sid[o] = (int32_t)r;
+        });
+    return NULL;
+}
+
+static void *idx_place_pass(void *arg) {
+    IdxTask *t = (IdxTask *)arg;
+    const int F = t->F;
+    const int64_t nf = (int64_t)1 << F;
+    int64_t *hist = t->cur;  /* [2^F]: counts, then end cursors */
     const int packed = t->out_packed != NULL;
-    for (int64_t p = warm; p < t->p_hi; p++) {
-        key = ((key << 2) | t->codes[p]) & mask;
-        run = t->fresh[p] ? 1 : run + 1;
-        if (p >= t->p_lo && p >= t->k - 1 && run >= t->k) {
-            int64_t ps = p - t->k + 1;
-            while (r + 1 < t->n_seqs && t->start[r + 1] <= ps) r++;
-            int32_t o = --cur[key];
-            if (packed)
-                t->out_packed[o] =
-                    ((uint32_t)r << 12) | (uint32_t)(p + 1 - t->start[r]);
-            else {
-                t->out_pos[o] = (int32_t)(p + 1);
-                t->out_sid[o] = (int32_t)r;
+    for (int64_t q = t->part_lo; q < t->part_hi; q++) {
+        const int64_t lo = t->part_start[q], hi = t->part_start[q + 1];
+        const int64_t m = hi - lo;
+        int32_t *bs = t->bucket_start + (q << F);
+        if (m == 0) {
+            for (int64_t f = 0; f < nf; f++) bs[f] = (int32_t)lo;
+            continue;
+        }
+        const uint16_t *fk = t->fine + lo;
+        memset(hist, 0, (size_t)nf * sizeof(int64_t));
+        for (int64_t i = 0; i < m; i++) hist[fk[i]]++;
+        int64_t acc = lo;
+        for (int64_t f = 0; f < nf; f++) {
+            bs[f] = (int32_t)acc;
+            acc += hist[f];
+            hist[f] = acc;
+        }
+        if (packed) {
+            uint32_t *out = t->out_packed, *tmp = (uint32_t *)t->scratch;
+            memcpy(tmp, out + lo, (size_t)m * 4);
+            for (int64_t i = 0; i < m; i++) out[--hist[fk[i]]] = tmp[i];
+        } else {
+            int32_t *tp = t->scratch, *ts = t->scratch + m;
+            memcpy(tp, t->out_pos + lo, (size_t)m * 4);
+            memcpy(ts, t->out_sid + lo, (size_t)m * 4);
+            for (int64_t i = 0; i < m; i++) {
+                int64_t o = --hist[fk[i]];
+                t->out_pos[o] = tp[i];
+                t->out_sid[o] = ts[i];
             }
         }
     }
@@ -190,49 +258,86 @@ EXPORT int64_t imsame_index_build(
     uint32_t *out_packed /* [cap] or dummy */, int32_t mode_packed,
     int32_t *out_pos, int32_t *out_sid /* [cap] each, or dummy */) {
     int T = n_threads < 1 ? 1 : (n_threads > 32 ? 32 : n_threads);
-    if (n < (1 << 20)) T = 1; /* thread setup dwarfs tiny inputs */
+    const int64_t t_max = n / IDX_MIN_ENTRIES_PER_THREAD;
+    if (T > t_max) T = t_max > 1 ? (int)t_max : 1;
     if (n < k) {
         memset(bucket_start, 0, (size_t)(n_buckets + 1) * 4);
         return 0;
     }
-    /* Fresh calloc per call: the kernel's lazy zero pages beat an
-       explicit memset of cached arrays (measured 0.18 s vs 0.23 s steady
-       on the 20k-read build with T=2). */
-    int32_t *bufs[32] = {0};
-    int32_t **counts = bufs;
-    for (int j = 0; j < T; j++) {
-        counts[j] = (int32_t *)calloc((size_t)n_buckets, 4);
-        if (!counts[j]) {
-            while (j-- > 0) free(counts[j]);
-            return -1;
-        }
-    }
+    /* F fine bits, S = 2k - F partition bits, S <= IDX_MAX_PART_BITS, so
+       F <= 16 for every k <= 16 and a fine key fits a uint16 */
+    int F = 2 * k < IDX_FINE_BITS ? 2 * k : IDX_FINE_BITS;
+    if (2 * k - F > IDX_MAX_PART_BITS) F = 2 * k - IDX_MAX_PART_BITS;
+    const int64_t P = (int64_t)1 << (2 * k - F);
+    const int64_t cur_len = P > ((int64_t)1 << F) ? P : ((int64_t)1 << F);
+
     IdxTask tasks[32];
+    int64_t *part_start = (int64_t *)malloc((size_t)(P + 1) * 8);
+    int64_t *cur = (int64_t *)calloc((size_t)(T * cur_len), 8);
+    uint16_t *fine = NULL;
+    int32_t *scratch = NULL;
+    int64_t total = -1;
+    if (!part_start || !cur) goto done;
     for (int j = 0; j < T; j++) {
         IdxTask *t = &tasks[j];
         t->codes = codes; t->fresh = fresh; t->start = start;
-        t->n_seqs = n_seqs; t->n = n; t->n_buckets = n_buckets;
-        t->k = k; t->T = T; t->tid = j;
+        t->n_seqs = n_seqs; t->k = k; t->F = F;
         t->p_lo = n * j / T;
         t->p_hi = n * (j + 1) / T;
-        t->b_lo = n_buckets * j / T;
-        t->b_hi = n_buckets * (j + 1) / T;
-        t->counts = counts; t->bucket_start = bucket_start;
+        t->cur = cur + (int64_t)j * cur_len;
         t->out_packed = mode_packed ? out_packed : NULL;
         t->out_pos = out_pos; t->out_sid = out_sid;
-        t->range_total = 0;
+        t->part_start = part_start; t->bucket_start = bucket_start;
     }
     run_tasks(tasks, T, idx_count_pass);
-    run_tasks(tasks, T, idx_range_total);
-    int64_t total = 0;
-    for (int j = 0; j < T; j++) {
-        tasks[j].bucket_base = total;
-        total += tasks[j].range_total;
+    /* counts -> cursors over (partition, thread), threads ascending */
+    total = 0;
+    for (int64_t q = 0; q < P; q++) {
+        part_start[q] = total;
+        for (int j = 0; j < T; j++) {
+            int64_t c = tasks[j].cur[q];
+            tasks[j].cur[q] = total;
+            total += c;
+        }
     }
-    run_tasks(tasks, T, idx_cursor_pass);
+    part_start[P] = total;
+    fine = (uint16_t *)malloc((size_t)(total > 0 ? total : 1) * 2);
+    if (!fine) { total = -1; goto done; }
+    for (int j = 0; j < T; j++) tasks[j].fine = fine;
+    run_tasks(tasks, T, idx_scatter_pass);
+    /* partition ranges balanced by weight, a partition weighing its
+       entries and a quarter of its 2^F counters; each range's scratch
+       holds its largest partition's payload */
+    {
+        const int64_t w_part = ((int64_t)1 << F) / 4 + 1;
+        const int64_t w_all = total + P * w_part;
+        const int words = mode_packed ? 1 : 2;
+        int64_t q = 0, w = 0, scratch_len = 0, off[32];
+        for (int j = 0; j < T; j++) {
+            int64_t big = 0;
+            tasks[j].part_lo = q;
+            while (q < P && (j == T - 1 || w < w_all * (j + 1) / T)) {
+                int64_t m = part_start[q + 1] - part_start[q];
+                if (m > big) big = m;
+                w += m + w_part;
+                q++;
+            }
+            tasks[j].part_hi = q;
+            off[j] = scratch_len;
+            scratch_len += big * words;
+        }
+        scratch = (int32_t *)malloc(
+            (size_t)(scratch_len > 0 ? scratch_len : 1) * 4);
+        if (!scratch) { total = -1; goto done; }
+        for (int j = 0; j < T; j++) tasks[j].scratch = scratch + off[j];
+    }
+    run_tasks(tasks, T, idx_place_pass);
     bucket_start[n_buckets] = (int32_t)total;
-    run_tasks(tasks, T, idx_fill_pass);
-    for (int j = 0; j < T; j++) free(counts[j]);
+done:
+    free(scratch);
+    free(fine);
+    free(cur);
+    free(part_start);
     return total;
 }
 

@@ -30,7 +30,8 @@ construction and uploads), ``sweep.compare``, ``sweep.render``,
 ``sweep.write`` (each report and stats file, written and renamed) and
 ``sweep.save_wait`` (the cache's saves joined at the end); and its
 counters ``sweep_jobs``, ``sweep_engine_builds``, ``sweep_index_builds``
-(cache misses), ``sweep_index_loads`` (cache hits) and
+(cache misses) with ``index_built_entries`` (the entries those builds
+placed), ``sweep_index_loads`` (cache hits) and
 ``sweep_bytes_written`` (every report, stats file and cached index that
 lands).  ``engine_timings`` and ``engine_counts`` sum the phases and
 counters of every engine the runner built, its construction and each
@@ -192,6 +193,7 @@ class AllVsAllRunner:
                 pass  # corrupt/stale cache entry: rebuild below
         idx = build_index(db)
         self.timer.count("sweep_index_builds", 1)
+        self.timer.count("index_built_entries", idx.n_entries)
         # Cache write off the critical path: the save only pays off on a
         # RESUMED sweep, so it runs in a background thread (numpy I/O
         # releases the GIL); the atomic rename keeps partial writes

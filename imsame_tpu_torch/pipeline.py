@@ -368,9 +368,13 @@ class TorchEngine:
             with self.timer.phase("index_build"):
                 # A prebuilt index (load_index / index_from_arrays) skips
                 # the build; the reference rebuilds its dictionary from
-                # FASTA every run (src/IMSAME.c:196-289).
-                self.index: KmerIndex = (index if index is not None
-                                         else build_index(db))
+                # FASTA every run (src/IMSAME.c:196-289).  A build counts
+                # its entries in index_built_entries.
+                self.index: KmerIndex = index
+                if index is None:
+                    self.index = build_index(db)
+                    self.timer.count("index_built_entries",
+                                     self.index.n_entries)
             with self.timer.phase("engine.upload"):
                 # One-word index payload (sid << 12 | doff): one gather per
                 # candidate in the gate.  Past it, the wide (pos, sid,

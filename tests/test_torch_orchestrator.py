@@ -33,6 +33,7 @@ from imsame_tpu.pipeline import TpuEngine
 from imsame_tpu_torch import orchestrator as torch_orch
 from imsame_tpu_torch import revcomp as trevcomp
 from imsame_tpu_torch.config import Config as TConfig
+from imsame_tpu_torch.index.kmer import build_index
 from imsame_tpu_torch.io.fasta import (
     parse_fasta_bytes, read_fasta, revcomp_fasta_bytes,
 )
@@ -303,13 +304,13 @@ SWEEP_PHASES = {f"sweep.{p}" for p in (
 
 def test_sweep_phases_and_counters(tmp_path):
     """A 4-sample sweep at max_engines=2 times every sweep.* phase and
-    counts its 12 jobs, 6 engines and 6 index builds and every byte that
-    lands in the outdir; its engines' summed counters, though the LRU
-    evicted four engines, are those of the 12 compares run through one
-    fresh engine a (db, strand), construction included.  Rerun on the
-    kept cache after its reports and stats are deleted, it loads the 6
-    indexes, builds none, writes only reports and stats, and gives the
-    same stats."""
+    counts its 12 jobs, 6 engines and 6 index builds, their entries, and
+    every byte that lands in the outdir; its engines' summed counters,
+    though the LRU evicted four engines, are those of the 12 compares run
+    through one fresh engine a (db, strand) given its index, construction
+    included.  Rerun on the kept cache after its reports and stats are
+    deleted, it loads the 6 indexes, builds none, writes only reports and
+    stats, and gives the same stats."""
     samples = write_samples(tmp_path / "samples", random.Random(8),
                             n_samples=4, n_reads=24)
     out = tmp_path / "out"
@@ -319,6 +320,7 @@ def test_sweep_phases_and_counters(tmp_path):
     counts = dict(runner.timer.counts())
     landed = [p for p in out.rglob("*") if p.is_file()]
     assert len([p for p in landed if p.suffix == ".npz"]) == 6
+    built = counts.pop("index_built_entries")
     assert counts == {
         "sweep_jobs": 12, "sweep_engine_builds": 6, "sweep_index_builds": 6,
         "sweep_bytes_written": sum(p.stat().st_size for p in landed)}
@@ -330,11 +332,13 @@ def test_sweep_phases_and_counters(tmp_path):
             raw = job.dbpath.read_bytes()
             db = parse_fasta_bytes(revcomp_fasta_bytes(raw) if job.reverse
                                    else raw)
-            engines[key] = TorchEngine(db, TConfig(**SMALL), device="cpu")
+            engines[key] = TorchEngine(db, TConfig(**SMALL),
+                                       index=build_index(db), device="cpu")
         q = read_fasta(str(job.qpath))
         engines[key].render_report(q, engines[key].compare(q))
     for eng in engines.values():
         want.update(dict(eng.timer.counts()))
+    assert built == sum(eng.index.n_entries for eng in engines.values()) > 0
     assert want["nw_launched_cells"] and want["gate_built_cands"]
     assert dict(runner.engine_counts) == dict(want)
     assert {"engine", "compare", "render_report"} <= set(
@@ -346,6 +350,7 @@ def test_sweep_phases_and_counters(tmp_path):
     counts2 = dict(runner2.timer.counts())
     assert counts2["sweep_index_loads"] == 6
     assert "sweep_index_builds" not in counts2
+    assert "index_built_entries" not in counts2
     assert counts2["sweep_engine_builds"] == 6
     assert counts2["sweep_bytes_written"] == sum(
         p.stat().st_size for p in out.iterdir() if p.is_file())
