@@ -670,7 +670,10 @@ class TorchEngine:
         dropped.  With ``render=True`` the ladder is re-derived per length
         bucket (see _render_sizes).  With ``count_cells`` the real pairs'
         cells add to nw_cells and every chunk's B * L * L, padding
-        included, to the counter nw_launched_cells."""
+        included, to the counter nw_launched_cells; the pairs and chunks
+        of buckets past nw_cuda.STRIP (the kernels' long paths) add the
+        same to nw_long_cells and nw_long_launched_cells.  Render chunks
+        add their B * L * L to render_launched_cells."""
         xls = self.db_read_lens[sids]
         yls = qlens[r_ids]
         maxl = np.maximum(xls, yls)
@@ -681,7 +684,11 @@ class TorchEngine:
             raise ValueError("Read size reached for gapped alignment.")
         buckets = lb[b]
         if count_cells:  # render runs aren't compare GCUPS
-            self._nw_cells += int(np.sum(xls.astype(np.int64) * yls))
+            cells = xls.astype(np.int64) * yls
+            self._nw_cells += int(cells.sum())
+            long = buckets > nw_cuda.STRIP
+            if long.any():
+                self.timer.count("nw_long_cells", int(cells[long].sum()))
         for L in np.unique(buckets):
             idxs = np.flatnonzero(buckets == L)
             lsizes = self._render_sizes(int(L)) if render else sizes
@@ -698,8 +705,13 @@ class TorchEngine:
                 spad = np.zeros(B, np.int32)
                 rpad[: len(chunk)] = r_ids[chunk]
                 spad[: len(chunk)] = sids[chunk]
+                launched = B * int(L) ** 2
+                if render:
+                    self.timer.count("render_launched_cells", launched)
                 if count_cells:
-                    self.timer.count("nw_launched_cells", B * int(L) ** 2)
+                    self.timer.count("nw_launched_cells", launched)
+                    if L > nw_cuda.STRIP:
+                        self.timer.count("nw_long_launched_cells", launched)
                 yield chunk, rpad, spad, int(L)
 
     def _nw_dispatch_pairs(self, r_ids, sids, qlens, dev):

@@ -36,25 +36,31 @@ CASES = {
 }
 # each case's counters after its compare and render, recorded on the
 # engine before the seam; index_built_entries, the entries of the db's
-# index (40 reads, 5,992 bases), counts the engine's build
+# index (40 reads, 5,992 bases), counts the engine's build, and
+# render_launched_cells the render's chunks: 20 pairs at L = 256 in
+# chunks of 8 (24 pairs) or, on the mesh, one chunk of 32
 COUNTS = {
     "seg": {"gate_built_cands": 326, "gate_cand_bytes": 1648,
             "h2d_bytes": 28360, "nw_launched_cells": 1572864,
             "render_native_records": 20,
-            "index_built_entries": 5552},
+            "index_built_entries": 5552,
+            "render_launched_cells": 1572864},
     "two words, wide index": {"gate_built_cands": 325,
                               "gate_cand_bytes": 2816, "h2d_bytes": 50828,
                               "nw_launched_cells": 1572864,
                               "render_native_records": 20,
-                              "index_built_entries": 5552},
+                              "index_built_entries": 5552,
+                              "render_launched_cells": 1572864},
     "three words": {"gate_built_cands": 326, "gate_cand_bytes": 4224,
                     "h2d_bytes": 53304, "nw_launched_cells": 1572864,
                     "render_native_records": 20,
-                    "index_built_entries": 5552},
+                    "index_built_entries": 5552,
+                    "render_launched_cells": 1572864},
     "mesh (2, 2)": {"gate_built_cands": 326, "gate_cand_bytes": 3072,
                     "h2d_bytes": 30168, "nw_launched_cells": 4194304,
                     "render_native_records": 20,
-                    "index_built_entries": 5552},
+                    "index_built_entries": 5552,
+                    "render_launched_cells": 2097152},
 }
 # the phases of every case, recorded with the counters
 PHASES = {
